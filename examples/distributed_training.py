@@ -3,7 +3,7 @@ stages (dense pre-train + singular fine-tune,
 reference code/train_full_model_v4.py:98-126 /
 svd_acceleration_v3.py:110-204) scaled over a jax.sharding.Mesh.
 
-On real multi-chip hardware the same code runs over the ICI mesh; here
+On real multi-GPU hardware the same code runs over NVLink; here
 it demos on whatever devices exist — pass --virtual N to fake an N-device
 CPU mesh (the test/CI configuration).
 

@@ -84,7 +84,7 @@ def main():
         default="adam",
         help="adam = the v4 recipe (adam, window-end MSE — "
         "train_full_model_v4.py:116-126); v1 = the ORIGINAL protocol the "
-        "published plot's model was trained with (VERDICT r4 #5): "
+        "published plot's model was trained with: "
         "SGD(momentum=.9, clipvalue=.5, lr=.01), 1800 minibatches of 32 "
         "windows x 100 steps, and Keras' broadcast loss — the "
         "TimeDistributed head's (B, T, 1) output trained against the "
@@ -112,7 +112,7 @@ def main():
         help="independent training seeds (init + window sampling); the "
         "artifact carries per-seed curves plus mean ± std per k, and the "
         "published-property check runs on the MEAN band (a single-seed "
-        "artifact is one noise-quantum of evidence — VERDICT r3 weak #4). "
+        "artifact is one noise-quantum of evidence). "
         "--quick forces 1",
     )
     ap.add_argument("--ckpt", default=None)
@@ -257,15 +257,14 @@ def main():
         # --quick must shrink the fine-tune workload too: the FactorConfig
         # defaults (20000 windows of 200 steps) would run ~10x more steps
         # than the quick pre-train itself. Reuse the quick pre-train's
-        # window scale instead. On TPU the fine-tune runs through the
-        # fused Pallas training engine (~7x the f32 scan at this scale,
-        # BENCH_NOTES §training).
-        on_tpu = jax.devices()[0].platform != "cpu"
+        # window scale instead. On the GPU the fine-tune runs through the
+        # recurrence kernel pair (step times in PERF.md).
+        on_gpu = jax.devices()[0].platform == "gpu"
         ft_tcfg = dataclasses.replace(
             tcfg if args.quick else TrainConfig(),
             epochs=fcfg.finetune_epochs,
             batch_size=fcfg.finetune_batch_size,
-            recurrence_kernel=on_tpu,
+            recurrence_kernel=on_gpu,
         )
         print(
             f"hoyer fine-tune (hoyer={fcfg.hoyer}, "

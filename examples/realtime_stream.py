@@ -15,11 +15,11 @@ This demo walks that exact consumer role on the compressed model:
    (`native/svdlstm_runtime.cpp`) over the same frames: parity vs JAX and
    per-frame latency — including what the load-time execution dispatch
    chose per layer (two-step where it pays, dense-reconstructed where it
-   cannot — BENCH_NOTES §native).
+   cannot).
 
 Run:  python examples/realtime_stream.py [--quick] [--units 40,40 --rank 10]
 CPU is the right backend here — this is the host/embedded consumer story,
-not the TPU path (use bench.py / examples/timing_curves.py for that).
+not the GPU path (use bench.py / examples/timing_curves.py for that).
 """
 
 import argparse

@@ -5,9 +5,9 @@ Workflow parity with reference code/svd_acceleration_v3.py:110-204:
 load the pretrained model → make a singular (factorized) model with
 hoyer=0.01, split kernels → fine-tune 10 epochs → harvest σ snapshots →
 truncate at cutoff 0.05 → time full vs reduced whole-run inference →
-weight counts, prediction overlay, RMSE / SNR report. Unlike the reference
-(1.31× slower), the reduced model here runs at parity or faster via the
-TPU kernel layout.
+weight counts, prediction overlay, RMSE / SNR report. The reference's
+reduced model ran 1.31× slower than its full one; here both run through
+``predict``'s dispatch (the recurrence kernel on the GPU at this width).
 
 Usage:
     python examples/svd_acceleration.py [--quick] [--ckpt PATH]
@@ -38,11 +38,10 @@ def main():
     ap.add_argument("--merged-kernel", action="store_true")
     ap.add_argument(
         "--kernel", action="store_true",
-        help="run BOTH training stages through the fused Pallas kernel "
-        "engine: the dense pre-train (ops/pallas_train_fused.py) and the "
-        "singular fine-tune via the differentiable dense reconstruction "
-        "(ops/singular_train.py; 0.448 vs 4.726 ms/step at the flagship "
-        "scale — BENCH_NOTES §train)",
+        help="run BOTH training stages through the recurrence kernel pair "
+        "(TrainConfig.recurrence_kernel, ops/gpu_recurrence.py): the dense "
+        "pre-train and the singular fine-tune via the differentiable dense "
+        "reconstruction (ops/singular_train.py); step times in PERF.md",
     )
     ap.add_argument(
         "--recover-epochs", type=int, default=0,
@@ -50,7 +49,7 @@ def main():
         "factors (B, C, bias, head) directly for N epochs, recovering "
         "accuracy the cutoff destroyed while keeping the compressed "
         "parameterization (train/finetune.finetune_reduced; with --kernel "
-        "it runs through the fused Pallas engine via ops/reduced_train.py "
+        "it runs through the recurrence kernel pair via ops/reduced_train.py "
         "— beyond-reference: the reference's reduced cell is frozen, "
         "code/svd_classes_v3.py:249-315)",
     )
@@ -59,7 +58,7 @@ def main():
         help="after truncation, fine-tune the reduced model THROUGH the "
         "int8 grid for N epochs (utils/quantize.qat_apply) so the exported "
         "int8 artifact matches what training optimized — measured 3.2x "
-        "artifact-noise reduction at r=25 (BENCH_NOTES §QAT)",
+        "artifact-noise reduction at r=25 (scripts/qat_experiment.py)",
     )
     ap.add_argument(
         "--export", default=None, metavar="DIR",
@@ -74,12 +73,10 @@ def main():
     import jax.numpy as jnp
 
     import svd_lstm_tpu as st
-    from svd_lstm_tpu.bench.devtime import device_time_ms
+    from svd_lstm_tpu.bench.timing import time_call
     from svd_lstm_tpu.config import DataConfig, FactorConfig, TrainConfig
     from svd_lstm_tpu.data import preprocess
     from svd_lstm_tpu.io.checkpoint import load_params
-    from svd_lstm_tpu.models.lstm import stacked_lstm_apply
-    from svd_lstm_tpu.ops.layouts import reduced_forward_dense_recurrent
     from svd_lstm_tpu.train.finetune import finetune, harvest_sigmas
     from svd_lstm_tpu.train.loop import fit, predict_full_run
     from svd_lstm_tpu.viz.plots import plot_prediction_overlay
@@ -153,18 +150,15 @@ def main():
             apply_fn=qat_apply(reduced_lstm_apply), verbose=True,
         ).params
 
-    # --- timing (device time; protocol parity with perf_counter-around-
-    # predict in the reference, minus the dispatch noise)
-    full_fn = jax.jit(lambda p, x: stacked_lstm_apply(p, x, return_sequences=True))
-    red_fn = jax.jit(lambda p, x: reduced_forward_dense_recurrent(p, x, return_sequences=True))
+    # --- timing (protocol parity with perf_counter-around-predict in the
+    # reference: host-clock median after a warm-up call)
+    pred_fn = jax.jit(lambda p, x: st.predict(p, x))
     X = jnp.asarray(ds.X, jnp.float32)
-    # time on a bounded slice: profiler traces grow with scan length and
-    # become slow to parse beyond ~16k steps; latency scales linearly in T
-    Xt = X[:, : min(X.shape[1], 16384)]
-    t_full = device_time_ms(full_fn, model, Xt, repeats=2)
-    t_red = device_time_ms(red_fn, rmodel, Xt, repeats=2)
-    print(f"full model timing:    {t_full:.3f} ms (device)")
-    print(f"reduced model timing: {t_red:.3f} ms (device)")
+    Xt = X[0, : min(X.shape[1], 16384)]
+    t_full = time_call(pred_fn, model, Xt, repeats=3).median_ms
+    t_red = time_call(pred_fn, rmodel, Xt, repeats=3).median_ms
+    print(f"full model timing:    {t_full:.3f} ms")
+    print(f"reduced model timing: {t_red:.3f} ms")
     print(f"ratio reduced/full:   {t_red/t_full:.3f}  (reference: 1.31)")
 
     # --- weights

@@ -1,13 +1,15 @@
-"""Timing-vs-rank and RMSE-vs-rank curves — regenerates the reference's two
-published figures (plots/timing_plot.png, plots/RMSE_plot.png) with this
-framework's numbers.
+"""Timing-vs-rank curve — regenerates the reference's published timing
+figure (plots/timing_plot.png) with this framework's numbers.
 
 The reference's timing plot showed ratio ≈ 1.31–1.39 at every rank cut (its
-compressed model was always slower). Here each rank cut is measured as
-on-device time of the reduced model in the TPU kernel layout.
+compressed model was always slower). Here each rank cut is the host-clock
+median of ``predict`` on the reduced model over that of the full model,
+both through the same dispatch (``bench.timing``: warm-up and compilation
+excluded, each call ended by ``block_until_ready``). Times mean something
+only on the GPU; a CPU run is a smoke test of the workflow.
 
 Usage:
-    python examples/timing_curves.py [--quick]
+    python examples/timing_curves.py [--quick] [--wide] [--fast]
 """
 
 import argparse
@@ -19,126 +21,53 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 import numpy as np
 
 
-def wide(args):
-    """Timing-vs-rank at wide width (3×512, merged factorization): the regime
-    where rank reduction genuinely beats dense on TPU — the speedup curve the
-    reference could not produce at any size (its plots/timing_plot.png sits
-    at 1.31–1.39 everywhere). Full model = XLA scan (the best dense path at
-    this width); reduced = hybrid folded two-step (BENCH_NOTES.md)."""
-    import jax
-    import jax.numpy as jnp
-
-    import svd_lstm_tpu as st
-    from svd_lstm_tpu.bench.devtime import device_time_ms
-    from svd_lstm_tpu.models.lstm import init_stacked_lstm, stacked_lstm_apply
-    from svd_lstm_tpu.ops.pallas_lstm import reduced_forward_hybrid
-    from svd_lstm_tpu.viz.plots import plot_timing_curve
-
-    units = (512, 512, 512)
-    T = 512 if args.quick else args.T
-    ranks = [64, 32] if args.quick else [256, 128, 64, 32, 16]
-
-    rng = np.random.default_rng(0)
-    on_tpu = jax.devices()[0].platform != "cpu"
-    if not on_tpu:
-        print("NOTE: wide timing curve is meaningful on TPU; CPU run is a smoke test.")
-    params = init_stacked_lstm(jax.random.PRNGKey(0), 16, units)
-    smodel = st.make_singular_model(params, merged_kernel=True)
-    x = jnp.asarray(rng.normal(size=(T, 16)), jnp.float32)
-
-    if args.fast and on_tpu:
-        # fast mode: both models through relaxed single-pass dots — full runs
-        # the dense hybrid kernel (beats the scan once dots are single-pass),
-        # reduced the hybrid two-step (BENCH_NOTES "fast mode")
-        from svd_lstm_tpu.ops.pallas_lstm import dense_forward_hybrid
-
-        full_fn = jax.jit(lambda p, xx: dense_forward_hybrid(p, xx, dot_precision="default"))
-        red_fn = jax.jit(lambda p, xx: reduced_forward_hybrid(p, xx, dot_precision="default"))
-    else:
-        full_fn = jax.jit(lambda p, xx: stacked_lstm_apply(p, xx[None], return_sequences=True)[0])
-        if on_tpu:
-            red_fn = jax.jit(reduced_forward_hybrid)
-        else:
-            from svd_lstm_tpu.ops.layouts import reduced_forward_dense_recurrent
-
-            red_fn = jax.jit(
-                lambda p, xx: reduced_forward_dense_recurrent(p, xx[None], return_sequences=True)[0]
-            )
-
-    mode = "fast hybrid" if (args.fast and on_tpu) else "dense scan"
-    t_full = device_time_ms(full_fn, params, x, repeats=3)
-    print(f"full ({mode}, 3x512): {t_full:.3f} ms")
-
-    ratios = []
-    for r in ranks:
-        rmodel = st.make_reduced_model(smodel, rank=r)
-        t_red = device_time_ms(red_fn, rmodel, x, repeats=3)
-        ratios.append(t_red / t_full)
-        print(f"r={r:3d}: reduced {t_red:.3f} ms  ratio {ratios[-1]:.3f}")
-
-    name = "timing_plot_wide_fast.png" if (args.fast and on_tpu) else "timing_plot_wide.png"
-    path = os.path.join(args.plots, name)
-    plot_timing_curve(ranks, ratios, xlabel="kept rank r (n=512)", savepath=path)
-    print(f"wrote {path}  (reference band: 1.31-1.39 — never below 1)")
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--plots", default="./plots")
     ap.add_argument("--T", type=int, default=6656)
     ap.add_argument("--wide", action="store_true",
-                    help="3x512 curve (the wide-model speedup regime)")
-    ap.add_argument("--fast", action="store_true",
-                    help="with --wide: measure both models in fast precision "
-                    "(single-pass dots; BENCH_NOTES 'fast mode')")
+                    help="3x512 merged factorization instead of the 4x40 split one")
+    ap.add_argument("--fast", action="store_true", help="predict(precision='fast')")
     args = ap.parse_args()
-
-    if args.wide:
-        wide(args)
-        return
 
     import jax
     import jax.numpy as jnp
 
     import svd_lstm_tpu as st
-    from svd_lstm_tpu.bench.devtime import device_time_ms
-    from svd_lstm_tpu.models.lstm import init_stacked_lstm, stacked_lstm_apply
-    from svd_lstm_tpu.ops.layouts import reduced_forward_dense_recurrent, reduced_forward_fused
-    from svd_lstm_tpu.ops.pallas_lstm import fused_dense_stack_pallas
+    from svd_lstm_tpu.bench.timing import time_call
+    from svd_lstm_tpu.models.lstm import init_stacked_lstm
     from svd_lstm_tpu.viz.plots import plot_timing_curve
 
-    units = (40, 40) if args.quick else (40, 40, 40, 40)
-    n = units[0]
-    T = 512 if args.quick else args.T
-    ks = [1, 5, 10, 15] if args.quick else [1, 3, 5, 7, 9, 11, 13, 15, 17, 19]
-
-    rng = np.random.default_rng(0)
-    on_tpu = jax.devices()[0].platform != "cpu"
-    params = init_stacked_lstm(jax.random.PRNGKey(0), 16, units)
-    smodel = st.make_singular_model(params, merged_kernel=False)
-
-    if on_tpu:
-        x = jnp.asarray(rng.normal(size=(T, 16)), jnp.float32)
-        full_fn = jax.jit(fused_dense_stack_pallas)
-        red_fn = jax.jit(reduced_forward_fused)
+    if jax.devices()[0].platform != "gpu":
+        print("NOTE: timings are meaningful on the GPU; this run is a smoke test.")
+    if args.wide:
+        units, merged = (512, 512, 512), True
+        ranks = [64, 32] if args.quick else [256, 128, 64, 32, 16]
     else:
-        x = jnp.asarray(rng.normal(size=(1, T, 16)), jnp.float32)
-        full_fn = jax.jit(lambda p, xx: stacked_lstm_apply(p, xx, return_sequences=True))
-        red_fn = jax.jit(lambda p, xx: reduced_forward_dense_recurrent(p, xx, return_sequences=True))
+        units, merged = ((40, 40) if args.quick else (40, 40, 40, 40)), False
+        ranks = [units[0] - k for k in ([1, 5, 10, 15] if args.quick
+                                        else [1, 3, 5, 7, 9, 11, 13, 15, 17, 19])]
+    T = 512 if args.quick else args.T
+    precision = "fast" if args.fast else "exact"
 
-    t_full = device_time_ms(full_fn, params, x, repeats=3)
-    print(f"full: {t_full:.3f} ms")
+    params = init_stacked_lstm(jax.random.PRNGKey(0), 16, units)
+    smodel = st.make_singular_model(params, merged_kernel=merged)
+    x = jnp.asarray(np.random.default_rng(0).normal(size=(T, 16)), jnp.float32)
+    fn = jax.jit(lambda p, xx: st.predict(p, xx, precision=precision))
 
+    t_full = time_call(fn, params, x).median_ms
+    print(f"full {'x'.join(map(str, units))} ({precision}): {t_full:.3f} ms")
     ratios = []
-    for k in ks:
-        rmodel = st.make_reduced_model(smodel, rank=n - k)
-        t_red = device_time_ms(red_fn, rmodel, x, repeats=3)
+    for r in ranks:
+        t_red = time_call(fn, st.make_reduced_model(smodel, rank=r), x).median_ms
         ratios.append(t_red / t_full)
-        print(f"k={k:2d} (r={n-k:2d}): reduced {t_red:.3f} ms  ratio {ratios[-1]:.3f}")
+        print(f"r={r:3d}: reduced {t_red:.3f} ms  ratio {ratios[-1]:.3f}")
 
-    plot_timing_curve(ks, ratios, savepath=os.path.join(args.plots, "timing_plot.png"))
-    print(f"wrote {args.plots}/timing_plot.png  (reference band: 1.31-1.39)")
+    name = f"timing_plot{'_wide' if args.wide else ''}{'_fast' if args.fast else ''}.png"
+    path = os.path.join(args.plots, name)
+    plot_timing_curve(ranks, ratios, xlabel=f"kept rank r (n={units[0]})", savepath=path)
+    print(f"wrote {path}  (reference band: 1.31-1.39 — never below 1)")
 
 
 if __name__ == "__main__":

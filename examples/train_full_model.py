@@ -28,16 +28,16 @@ def main():
     ap.add_argument("--plots", default="./plots")
     ap.add_argument(
         "--kernel", action="store_true",
-        help="train through the fused whole-stack Pallas kernel pair "
-        "(TrainConfig.recurrence_kernel; 5.42 vs 9.17 ms/step at the "
-        "flagship scale, bf16-class gradients — BENCH_NOTES.md)",
+        help="train through the recurrence kernel pair "
+        "(TrainConfig.recurrence_kernel, TF32 in-kernel dots; step times "
+        "on the H100 in PERF.md)",
     )
     ap.add_argument(
         "--remat-chunk", type=int, default=0, metavar="K",
         help="chunked-time jax.checkpoint BPTT for long windows "
         "(TrainConfig.remat_chunk: O(T/K + K) live activation memory, "
         "identical values; e.g. 512x4000-step windows need 25 GB of "
-        "temps plain but 2.8 GB at K=128 — BENCH_NOTES.md)",
+        "temps plain but 2.8 GB at K=128)",
     )
     args = ap.parse_args()
 
@@ -70,7 +70,7 @@ def main():
     t0 = time.perf_counter()
     res = fit(params, ds.X_train, ds.y_train, tcfg, verbose=True)
     print(f"training wall time: {time.perf_counter() - t0:.1f} s"
-          f" ({'fused-kernel' if args.kernel else 'XLA scan'} path)")
+          f" ({'recurrence-kernel' if args.kernel else 'XLA scan'} path)")
     print(f"rollbacks: {res.rollbacks}")
 
     pred = predict_full_run(res.params, ds.X)

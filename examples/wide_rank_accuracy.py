@@ -1,20 +1,18 @@
-"""Accuracy-vs-rank AT THE WIDE SCALE the timing wins were measured at
-(VERDICT r3 next #6).
+"""Accuracy-vs-rank at the wide scale (3x512, merged factorization).
 
-The round-3 headline (reduced/full = 0.705 exact, 0.547 fast at 3x512
-merged r=32, batch-1) was timing-only. The reference never published a
-timing win without the paired accuracy curve (plots/RMSE_plot.png +
-plots/timing_plot.png, old_versions/svd_acceleration.py:92-123), so this
-example supplies the missing pair: train a 3x512 stack on the DROPBEAR
-surrogate, truncate the merged singular form across ranks (including the
-measured-win r=32/64), and report RMSE next to the measured device-time
-ratio at every rank.
+The reference never published a timing result without the paired accuracy
+curve (plots/RMSE_plot.png + plots/timing_plot.png,
+old_versions/svd_acceleration.py:92-123), so this example supplies the pair
+for the wide model: train a 3x512 stack on the DROPBEAR surrogate, truncate
+the merged singular form across ranks, and report RMSE at every rank —
+next to the reduced/full ``predict`` time ratio when run on the GPU
+(host-clock medians, ``bench.timing``).
 
 Artifacts: model_saves/wide_rank_accuracy.json +
 plots/wide_rank_accuracy.png (consumed by tests/test_sweep_viz.py).
 
 Usage:
-    python examples/wide_rank_accuracy.py            # TPU, full run
+    python examples/wide_rank_accuracy.py            # GPU, full run
     python examples/wide_rank_accuracy.py --quick    # CPU smoke
 """
 
@@ -57,8 +55,7 @@ def main():
         help="additionally run the progressive truncate-recover pipeline "
         "to r=24 (ranks 32 -> 24, re-factorizing the recovered model "
         "between stages) and record it as a 'progressive_r24' block — the "
-        "round-5 rescue of the direct-truncation knife-edge "
-        "(BENCH_NOTES §progressive truncation)",
+        "rescue of the direct-truncation knife-edge at r=24",
     )
     ap.add_argument("--noise", type=float, default=1.5)
     ap.add_argument("--ckpt", default="./model_saves/pretrained_3x512_n1.5.npz")
@@ -80,12 +77,11 @@ def main():
     from svd_lstm_tpu.data.dropbear import preprocess_raw
     from svd_lstm_tpu.data.synthetic import synthetic_dropbear_raw
     from svd_lstm_tpu.io.checkpoint import load_params, save_params
-    from svd_lstm_tpu.models.lstm import stacked_lstm_apply
     from svd_lstm_tpu.models.reduced import reduced_lstm_apply
     from svd_lstm_tpu.train.loop import fit, predict_full_run
     from svd_lstm_tpu.train.metrics import rmse
 
-    on_tpu = jax.devices()[0].platform != "cpu"
+    on_gpu = jax.devices()[0].platform == "gpu"
     print(f"devices: {jax.devices()}", flush=True)
 
     dcfg = DataConfig()
@@ -100,13 +96,12 @@ def main():
         model = load_params(args.ckpt)
         print(f"loaded {args.ckpt}")
     else:
-        # the fused wide-layer train kernel IS the training path here
         tcfg = TrainConfig(
             epochs=2 if args.quick else args.epochs,
             batch_size=32 if args.quick else 128,
             num_windows=512 if args.quick else 20_000,
             window_len=50 if args.quick else 200,
-            recurrence_kernel=on_tpu,
+            recurrence_kernel=on_gpu,
         )
         print(f"training {'x'.join(map(str, units))} "
               f"({tcfg.epochs} epochs, kernel={tcfg.recurrence_kernel})...",
@@ -124,11 +119,9 @@ def main():
     full_pred = inv(predict_full_run(model, ds.X_test))
     full_rmse = rmse(y_true, full_pred)
     full_w = sum(int(np.asarray(a).size) for l in model.layers for a in l)
-    # fast-precision accuracy column (VERDICT r4 #8): the deepest timing
-    # headline (0.547 = fast reduced / fast full) gets its own RMSE
-    # evidence. predict(precision='fast') = relaxed single-pass bf16 dots
-    # through the kernel routes on TPU; off-TPU batch-1 it is the exact
-    # scan (api.py), so the quick artifact's fast columns equal exact.
+    # fast-precision accuracy column: predict(precision='fast') on batch-1
+    # input; at 512 units that is the exact scan (api.py: the kernel takes
+    # at most 128 units), so the fast columns equal exact.
     x_test1 = jnp.asarray(ds.X_test[0])
     fast_fn = jax.jit(lambda p, xx: st.predict(p, xx, precision="fast"))
     full_fast_rmse = rmse(y_true, inv(np.asarray(fast_fn(model, x_test1))[:, 0]))
@@ -136,27 +129,22 @@ def main():
           f"(fast {full_fast_rmse*1000:.3f} mm)  weights {full_w}",
           flush=True)
 
-    # timing harness: the bench.py wide protocol (batch-1, T=6656,
-    # device time; reduced runs the hybrid layout on TPU)
+    # timing: the bench.py wide protocol (batch-1, T=6656, predict)
     x_time = jnp.asarray(
         np.random.default_rng(1).normal(size=(TIMING_T, dcfg.frame_width)),
         jnp.float32,
     )
     full_ms = None
-    if on_tpu:
-        from svd_lstm_tpu.bench.devtime import device_time_ms
-        from svd_lstm_tpu.ops.pallas_lstm import reduced_forward_hybrid
+    if on_gpu:
+        from svd_lstm_tpu.bench.timing import time_call
 
-        full_fn = jax.jit(
-            lambda p, xx: stacked_lstm_apply(p, xx[None], return_sequences=True)[0]
-        )
-        jax.block_until_ready(full_fn(model, x_time))
-        full_ms = device_time_ms(full_fn, model, x_time)
+        time_fn = jax.jit(lambda p, xx: st.predict(p, xx))
+        full_ms = time_call(time_fn, model, x_time).median_ms
         print(f"full timing: {full_ms:.3f} ms (T={TIMING_T}, batch-1)", flush=True)
 
     smodel = st.make_singular_model(model, merged_kernel=True)
     rows = []
-    recover_recipe = None  # stamped from the first gated run (ADVICE r4)
+    recover_recipe = None  # stamped from the first gated run
     for r in ranks:
         rmod = st.make_reduced_model(smodel, rank=r)
         pred = inv(predict_full_run(rmod, ds.X_test, apply_fn=reduced_lstm_apply))
@@ -207,10 +195,8 @@ def main():
                 "best_val_mse": round(rinfo["best_val_mse"], 6),
                 "trace": rinfo["trace"],
             }
-        if on_tpu:
-            red_fn = jax.jit(reduced_forward_hybrid)
-            jax.block_until_ready(red_fn(rmod, x_time))
-            red_ms = device_time_ms(red_fn, rmod, x_time)
+        if on_gpu:
+            red_ms = time_call(time_fn, rmod, x_time).median_ms
             row["reduced_ms"] = round(red_ms, 4)
             row["timing_ratio"] = round(red_ms / full_ms, 4)
         rows.append(row)
@@ -218,14 +204,14 @@ def main():
               f"(x{row['rmse_ratio']:.3f})  weights x{row['weight_ratio']:.3f}"
               + (f"  recovered x{row['recovered_ratio']:.3f}"
                  if "recovered_ratio" in row else "")
-              + (f"  time x{row['timing_ratio']:.3f}" if on_tpu else ""),
+              + (f"  time x{row['timing_ratio']:.3f}" if on_gpu else ""),
               flush=True)
 
     progressive = None
     if args.progressive:
         # progressive truncate -> recover -> re-factorize schedule down to
         # r=24 (direct truncation there is a measured knife-edge that the
-        # gated recovery correctly refuses — BENCH_NOTES §round-5)
+        # gated recovery correctly refuses)
         from svd_lstm_tpu.train.finetune import truncate_recover_progressive
 
         ranks = (32, 24) if not args.quick else (8, 4)
@@ -268,10 +254,9 @@ def main():
                     "units": units,
                     "merged_kernel": True,
                     "noise": args.noise,
-                    "timing_T": TIMING_T,
                     "dataset": "synthetic DROPBEAR surrogate"
                     + (" (quick)" if args.quick else ""),
-                    "on_tpu": on_tpu,
+                    "on_gpu": on_gpu,
                     "recover": recover_recipe,
                 },
                 "full_rmse_mm": round(float(full_rmse * 1000), 4),
@@ -306,13 +291,13 @@ def main():
     ax1.set_ylabel("RMSE ratio", color="tab:blue")
     ax1.set_xscale("log", base=2)
     ax1.invert_xaxis()
-    if on_tpu:
+    if on_gpu:
         ax2 = ax1.twinx()
         ax2.plot(rs, [row["timing_ratio"] for row in rows], "s--",
                  color="tab:red", label="time(reduced)/time(full)")
-        ax2.set_ylabel("device-time ratio", color="tab:red")
+        ax2.set_ylabel("time ratio (predict, host clock)", color="tab:red")
         ax2.axhline(1.0, color="tab:red", lw=0.5, ls=":")
-    fig.suptitle("3x512 merged truncation: accuracy AND timing vs rank")
+    fig.suptitle("3x512 merged truncation: accuracy vs rank")
     fig.tight_layout()
     fig.savefig(args.plot, dpi=120)
     print(f"wrote {args.plot}")

@@ -122,12 +122,11 @@ struct GatePair {        // two-step factors for one gate: z = [vB, (vB)C]
 };
 
 struct Layer {
-  // Per-SIDE execution dispatch (VERDICT r2 weak #4): a reduced export
-  // whose rank can't pay for the two-step's irregular small GEMVs is
-  // reconstructed to dense AT LOAD (exactly the TPU side's layout rule,
-  // ops/layouts.py: store compressed, execute dense when the two-step
-  // loses). Measured crossover: r/n = 0.4 wins (0.92x), 0.5 loses
-  // (1.18x) — see BENCH_NOTES §native.
+  // Per-SIDE execution dispatch: a reduced export whose rank can't pay
+  // for the two-step's irregular small GEMVs is reconstructed to dense AT
+  // LOAD (the rule of ops/layouts.py: store compressed, execute dense
+  // when the two-step loses). Measured crossover on the host CPU
+  // (scripts/bench_native.py): r/n = 0.4 wins (0.92x), 0.5 loses (1.18x).
   bool w_reduced = false, u_reduced = false;
   // group count per side: 4 = split (per-gate factors), 1 = merged (one
   // SVD of the whole (rows x 4n) matrix — its two-step spans all four
@@ -135,7 +134,7 @@ struct Layer {
   int w_groups = 4, u_groups = 4;
   // dense: all four gates concatenated column-wise — ONE GEMV per side
   // with a 4n-wide inner loop instead of four n-wide ones (vectorizes and
-  // amortizes the row loop; same packed-gate idea as the TPU kernels).
+  // amortizes the row loop).
   FlatMat Wcat, Ucat;            // (in_dim x 4n), (n x 4n)
   // reduced: packed-B (all groups' B side by side) + per-group C
   FlatMat wBcat, uBcat;          // (in_dim x sum r_g), (n x sum r_g)
@@ -224,7 +223,7 @@ struct Model {
 // Does the exact two-step pay for this side's ranks? FLOP-aware rule:
 // per group the two-step costs r·(m + gw − r) MACs vs m·gw dense
 // (slide-9 accounting), and the measured crossover on this runtime
-// (BENCH_NOTES §native, 4x40/4x30: r/n = 0.4 steps at 0.92x, 0.5 at
+// (scripts/bench_native.py, host CPU, 4x40/4x30: r/n = 0.4 steps at 0.92x, 0.5 at
 // 1.18x, 0.625 at 1.41x on the square U side) puts the overhead of the
 // irregular small GEMVs at ~30% of dense — keep the factored path only
 // when it saves at least that. Unlike the earlier rank-ratio rule
@@ -281,7 +280,7 @@ FlatMat densify_gate(const FlatMat& B, const FlatMat& C, bool Cdot, int n) {
 // Finalize a reduced layer's two sides: pack the factored form where the
 // two-step pays (or is forced), reconstruct to a dense cat where it
 // can't — so a consumer loading a shallow-rank export never steps slower
-// than dense (the TPU layout rule, ops/layouts.py, mirrored).
+// than dense (the layout rule of ops/layouts.py, mirrored).
 // groups: 4 = split (per-gate width n), 1 = merged (one group, width 4n).
 void finalize_reduced_sides(Layer* L, FlatMat* wB, FlatMat* uB,
                             bool force_two_step, int groups) {

@@ -1,9 +1,9 @@
-"""Hoyer-efficacy experiment on TPU: does the fine-tune actually sparsify σ
+"""Hoyer-efficacy experiment: does the fine-tune actually sparsify σ
 so that cutoff-truncation removes weights at negligible RMSE cost?
 
 Mirrors the reference experiment end-to-end (train → factorize →
 hoyer-finetune → truncate → compare), on the synthetic DROPBEAR surrogate,
-and records the numbers for BENCH/README claims.
+and records the numbers for the README's accuracy claims.
 """
 import json
 import time

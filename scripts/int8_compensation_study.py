@@ -1,6 +1,6 @@
 """int8 artifact accuracy: dense vs reduced, plain vs compensated C.
 
-Backs BENCH_NOTES §"int8 artifact compensation". CPU-run — quantization
+Backs the int8 artifact compensation (utils/quantize.py). CPU-run — quantization
 error is hardware-independent (exact f32 matmuls everywhere).
 
 Measured question: what does the int8 deployment artifact

@@ -1,6 +1,6 @@
 """Quantization-aware fine-tuning (QAT) of the reduced model before export.
 
-Backs BENCH_NOTES §"QAT". CPU-run — quantization error and the STE
+Backs quantization-aware training (utils/quantize.qat_apply). CPU-run — quantization error and the STE
 training mechanics are hardware-independent.
 
 After the exporter's post-training C compensation

@@ -1,6 +1,10 @@
-"""End-to-end drive of the public API on real TPU: the full reference
-workflow — preprocess → train → factorize → fine-tune(Hoyer) → truncate →
-predict → metrics → checkpoint → pallas inference."""
+"""End-to-end drive of the public API: the full reference workflow —
+preprocess → train → factorize → fine-tune(Hoyer) → truncate → predict →
+metrics → checkpoint → recurrence-kernel inference → native consumer.
+Runs on the GPU, or on the CPU with the kernel in interpret mode."""
+import os
+import tempfile
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -9,15 +13,13 @@ import svd_lstm_tpu as st
 from svd_lstm_tpu.config import DataConfig, FactorConfig, TrainConfig
 from svd_lstm_tpu.data import preprocess, split_train_random
 from svd_lstm_tpu.io.checkpoint import load_params, save_params
-from svd_lstm_tpu.ops.pallas_lstm import fused_dense_stack_pallas, fused_reduced_stack_pallas
 from svd_lstm_tpu.train.finetune import finetune, harvest_sigmas
 from svd_lstm_tpu.train.loop import fit, predict_full_run
 
 print("== devices:", jax.devices())
 
 # 1. data (synthetic surrogate; raw DROPBEAR JSON is gitignored upstream).
-# 16 s run -> T = 32 000 frames at the 500 us frame clock; test side fits the
-# resident-VMEM limit of the fused kernels.
+# 16 s run -> T = 32 000 frames at the 500 us frame clock.
 from svd_lstm_tpu.data.dropbear import preprocess_raw
 from svd_lstm_tpu.data.synthetic import synthetic_dropbear_raw
 
@@ -57,22 +59,22 @@ print(f"== metrics: full RMSE {st.rmse(y_m, pf)*1000:.2f} mm  reduced RMSE {st.r
       f"SNR(full) {st.signaltonoise(y_m, pf):.1f} dB  noise(red vs full) {st.signaltonoise(pf, pr, invert=True):.1f} dB")
 
 # 6. checkpoint roundtrip
-save_params("/tmp/verify_ckpt.npz", rmodel)
-r2 = load_params("/tmp/verify_ckpt.npz")
+work = tempfile.mkdtemp(prefix="verify_e2e_")
+save_params(os.path.join(work, "ckpt.npz"), rmodel)
+r2 = load_params(os.path.join(work, "ckpt.npz"))
 assert all(np.array_equal(np.asarray(a), np.asarray(b))
            for a, b in zip(jax.tree.leaves(rmodel), jax.tree.leaves(r2)))
 print("== checkpoint: roundtrip exact")
 
-# 7. pallas fused kernels vs scan numerics (interpret mode on CPU, where we
-# also shorten the run — the interpreter executes python-step-wise)
-interp = jax.default_backend() == "cpu"
-Tk = 256 if interp else ds.X_test.shape[1]
+# 7. the recurrence kernel (predict impl="fused") vs the scan (interpret
+# mode on the CPU, where the run is shortened)
+Tk = 256 if jax.default_backend() == "cpu" else ds.X_test.shape[1]
 xt = jnp.asarray(ds.X_test[0, :Tk], jnp.float32)
-y_pallas_full = np.asarray(fused_dense_stack_pallas(res.params, xt, interpret=interp))[:, 0]
-y_pallas_red = np.asarray(fused_reduced_stack_pallas(rmodel, xt, interpret=interp))[:, 0]
-e1 = np.abs(y_pallas_full - pred_full[:Tk]).max()
-e2 = np.abs(y_pallas_red - pred_red2[:Tk]).max()
-print(f"== pallas: |fused_full - scan| {e1:.2e}  |fused_reduced - scan| {e2:.2e}")
+y_kernel_full = np.asarray(st.predict(res.params, xt, impl="fused"))[:, 0]
+y_kernel_red = np.asarray(st.predict(rmodel, xt, impl="fused"))[:, 0]
+e1 = np.abs(y_kernel_full - pred_full[:Tk]).max()
+e2 = np.abs(y_kernel_red - pred_red2[:Tk]).max()
+print(f"== kernel: |fused_full - scan| {e1:.2e}  |fused_reduced - scan| {e2:.2e}")
 assert e1 < 1e-4 and e2 < 1e-4
 
 # 8. native C++ consumer: export the reduced model, load through the
@@ -81,7 +83,7 @@ assert e1 < 1e-4 and e2 < 1e-4
 try:
     from svd_lstm_tpu.io.native import NativeModel, save_reduced_weights_as_csv
 
-    ndir = "/tmp/verify_native_export"
+    ndir = os.path.join(work, "native_export")
     save_reduced_weights_as_csv(rmodel, ndir)
     nm = NativeModel(
         ndir,

@@ -1,4 +1,4 @@
-"""svd_lstm_tpu — a TPU-native JAX framework for SVD-accelerated LSTMs.
+"""svd_lstm_tpu — a JAX framework for SVD-accelerated LSTMs on the GPU.
 
 From-scratch rebuild of the capabilities of
 `dncoble/LSTM-acceleration-with-singular-value-decomposition`:
@@ -10,26 +10,28 @@ From-scratch rebuild of the capabilities of
   orthogonality penalty on the factors (reference: code/svd_classes_v3.py),
 * truncate to an exact low-rank two-step cell `z = [xB, (xB)C]` with
   `B=(UΣ)V₁`, `C=V₁⁻¹V₂` (reference: code/svd_classes_v3.py:604-676),
-* run the compressed recurrence as a fused Pallas kernel inside `lax.scan`
-  so the compressed model is actually *faster* than the full one — the
-  reference's Python/Keras implementation ran ~1.3× slower
+* run the recurrence of narrow stacks as a Pallas (Triton) kernel on the
+  GPU that keeps h and c on chip for the whole run — the reference's
+  Python/Keras compressed model ran ~1.3× slower than its full one
   (reference: plots/timing_plot.png, slide 15).
 
 Design: pure-functional parameter pytrees, `lax.scan` over time, the input
-projection of every layer hoisted out of the recurrence into one big MXU
-matmul, Pallas kernels keeping recurrent weights + state resident in VMEM,
-and `jax.sharding.Mesh` + `shard_map` for batch/model parallel execution.
+projection of every layer hoisted out of the recurrence into one large
+matmul, and `jax.sharding.Mesh` + `shard_map` for batch/model parallel
+execution.
 """
 
 __version__ = "0.1.0"
 
 import jax as _jax
 
-# Full-f32 matmul accumulation by default: TPU matmuls otherwise run f32
-# operands through bf16 passes, which breaks exact-reconstruction numerics
-# (singular/reduced models must match the dense model to tight tolerance at
-# every rank — SURVEY.md §7 hard part (a)). bfloat16-dtype params are
-# unaffected; speed experiments opt in by casting dtypes explicitly.
+# Full-f32 matmuls by default: on the GPU XLA may otherwise run f32
+# operands in TF32 (10 mantissa bits), which breaks exact-reconstruction
+# numerics (singular/reduced models must match the dense model to tight
+# tolerance at every rank — SURVEY.md §7 hard part (a)). bfloat16-dtype
+# params are unaffected; speed modes opt in explicitly (precision="high" /
+# "fast"). Pallas kernels ignore this setting: ops/gpu_recurrence.py passes
+# its dot precision (HIGHEST or DEFAULT) to every in-kernel dot itself.
 _jax.config.update("jax_default_matmul_precision", "float32")
 
 from svd_lstm_tpu.config import (

@@ -148,7 +148,7 @@ def _trace(argv):
     )
     ap.add_argument("--steps", type=int, default=2048, help="run length T")
     ap.add_argument(
-        "--impl", default="auto", choices=("auto", "scan", "fused", "hybrid"),
+        "--impl", default="auto", choices=("auto", "scan", "fused"),
         help="predict impl",
     )
     ap.add_argument(
@@ -212,7 +212,7 @@ def _tune(argv):
     ap.add_argument(
         "--train", action="store_true",
         help="tune the TRAINING step instead of inference: measure "
-        "f32/tf32/bf16 scans and the fused kernel engine (full "
+        "f32/tf32/bf16 scans and the recurrence kernel pair (full "
         "value_and_grad+adam step, family-aware: σ-masked Hoyer step for "
         "singular checkpoints) and report the winning TrainConfig "
         "(matmul_precision, recurrence_kernel) flags; --batch/--steps set "
@@ -256,15 +256,12 @@ def _tune(argv):
         print(
             "TrainConfig flags: "
             f"matmul_precision={r.matmul_precision!r}, "
-            f"recurrence_kernel={r.recurrence_kernel}, "
-            f"compact_gates={r.compact_gates}"
+            f"recurrence_kernel={r.recurrence_kernel}"
         )
         if not args.no_cache:
             cache = at.store_tuned(
                 at.train_cache_key(params, x),
-                at.encode_train_flags(
-                    r.matmul_precision, r.recurrence_kernel, r.compact_gates
-                ),
+                at.encode_train_flags(r.matmul_precision, r.recurrence_kernel),
             )
             print(f"cached -> {cache}")
         return
@@ -293,8 +290,7 @@ def _stream(argv):
         "artifact: each input line is one frame (comma/space-separated "
         "floats), each output line one prediction, flushed per frame — "
         "pipe-able into a downstream consumer. Runs on CPU (this is the "
-        "host/embedded deployment story; use bench/timing for the TPU "
-        "path).",
+        "host/embedded deployment story; use predict for the GPU path).",
     )
     ap.add_argument(
         "artifact",
@@ -333,11 +329,11 @@ def _stream(argv):
 
     # Pin JAX to CPU before ANY branch may initialize a backend: the native
     # checkpoint path below calls load_params -> jnp.asarray, which would
-    # otherwise lazily grab the default (TPU) backend just to re-export
-    # CSVs — contending with whatever process legitimately holds the chip
-    # (CLAUDE.md: one TPU client at a time). Importing jax does not
-    # initialize a backend; the config update keeps every later lazy init
-    # on CPU, matching this command's "Runs on CPU" contract.
+    # otherwise lazily open the GPU (reserving most of its memory) just to
+    # re-export CSVs, and fail beside a process that already holds the
+    # card. Importing jax does not initialize a backend; the config update
+    # keeps every later lazy init on CPU, matching this command's "Runs on
+    # CPU" contract.
     import jax
 
     jax.config.update("jax_platforms", "cpu")
@@ -471,6 +467,9 @@ def _stream(argv):
 
 
 def main():
+    from svd_lstm_tpu.utils.backend import enable_compile_cache
+
+    enable_compile_cache()
     if len(sys.argv) >= 2 and sys.argv[1] == "export":
         _export(sys.argv[2:])
         return

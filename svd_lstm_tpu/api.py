@@ -1,53 +1,34 @@
-"""High-level inference API: ``predict(params, x)`` with measured-best
-implementation selection.
+"""High-level inference API: ``predict(params, x)``.
 
-The selection table is empirical (BENCH_NOTES.md, v5e device time):
+Dispatch (times on the H100 are in PERF.md):
 
-* dense / singular models
-  - batch-1 on TPU, n ≤ 128: fused compact-weight Pallas kernel (3.71 ms
-    vs 7.36 ms scan for the 4×40 DROPBEAR run)
-  - otherwise: XLA scan with hoisted input projections (wide models are
-    weight-streaming-bound and the scan wins; batched throughput likewise)
-* reduced models
-  - batch-1 on TPU, n ≤ 128: dense reconstruction through the fused kernel
-    (exact; the two-step recurrence costs 1.31–5× at the latency floor)
-  - batch-1 on TPU, n ≥ 256: hybrid path — hoisted factored x-side + Pallas
-    two-step recurrence (merged: folded form, 0.71× the best dense at
-    3×512/r=32; split: packed-B form, 0.79×)
-  - otherwise: dense-reconstructed scan layout
+* batch-1 on the GPU, every layer narrow enough for the kernel (n <= 64
+  exact, n <= 128 fast): the Pallas recurrence kernel
+  (ops/gpu_recurrence.py) for the dense, singular and reduced families —
+  the factored families through their exact dense reconstruction;
+* everything else: XLA (``lax.scan`` with hoisted input projections).
 
-Batched throughput additionally supports reduced-precision modes
-(``precision=``), measured at 3×512/B=256/T=128 on v5e:
+``impl="fused"`` names the kernel explicitly (it also runs on the CPU, in
+interpret mode); ``impl="scan"`` names XLA.
 
-* ``"exact"`` (default): f32-forced matmul passes — bitwise parity with the
-  exact-reconstruction identities (15.7 ms reference point);
-* ``"high"``: 3-pass-bf16 matmuls, rel.err ~1e-4 (9.9 ms, 1.6×);
-* ``"fast"``: bf16 x-side + VMEM-resident Pallas recurrence with f32
-  accumulation (ops/pallas_batched.py), rel.err ~7e-3 (2.12 ms, 7.4×);
-  off-TPU it falls back to the all-bf16 XLA scan (3.3 ms, 4.7× on v5e).
+Precision modes:
 
-Batch-1 ``precision="fast"`` (round 2) relaxes the Pallas kernels' dots to
-single-pass bf16 multiplies with f32 accumulation (``dot_precision=
-"default"``): the package's exactness default forces 3-pass f32 emulation,
-which is not free even in the chain-bound regime — measured 4×40 fused
-3.71 → 2.50 ms, wide reduced hybrid 9.83 → 5.40 ms, wide dense hybrid
-beats the scan (10.2 vs 13.9 ms), all at ~6e-3 rel.err. bf16-*cast*
-batch-1 scans remain a loss (1.18× slower at 3×512): the win is fewer MXU
-passes over the same weights, not smaller weights. ``precision="high"``
-still applies to batched input only.
+* ``"exact"`` (default): f32 matmuls, and IEEE f32 dots inside the kernel;
+* ``"high"``: TF32 matmuls (``jax.default_matmul_precision
+  ("tensorfloat32")``), batched input only (batch-1 runs exact);
+* ``"fast"``: batched input runs the bf16 XLA scan; batch-1 runs the kernel
+  with TF32 dots. The errors of each mode against exact, measured on the
+  card, are in PERF.md.
 """
 
 from __future__ import annotations
 
-import jax
-
 from svd_lstm_tpu.models.lstm import StackedLSTMParams, stacked_lstm_apply
 from svd_lstm_tpu.models.reduced import ReducedModelParams
 from svd_lstm_tpu.models.singular import SingularModelParams, singular_lstm_apply
+from svd_lstm_tpu.utils.backend import platform
 
-
-def _on_tpu() -> bool:
-    return jax.devices()[0].platform != "cpu"
+IMPLS = ("auto", "scan", "fused")
 
 
 def model_input_dim(params) -> int:
@@ -69,23 +50,25 @@ def valid_impls(params, x, precision: str = "exact") -> list:
     input, precision) — the candidate set ``bench.autotune`` measures.
 
     Lives next to the dispatch in :func:`predict` so the two cannot drift:
-    'auto' is omitted wherever it merely aliases a listed impl (batch-1
-    'auto' always resolves to fused/hybrid/scan; batched 'auto' only
-    diverges from 'scan' in fast mode on TPU, where it takes the Pallas
-    batched kernel), and 'fused' is omitted above its n ≤ 128 width rule
-    (predict would silently run the scan for a wide 'fused' request).
+    'auto' always resolves to one of the listed impls, and 'fused' is
+    listed only for batch-1 input whose layers the kernel takes at this
+    precision (ops.gpu_recurrence.MAX_UNITS).
     """
-    batched = x.ndim == 3
-    if batched:
-        if precision == "fast" and _on_tpu():
-            return ["auto", "scan"]
+    if x.ndim == 3:
         return ["scan"]
     if hasattr(params, "inner"):  # conv hybrids route on the inner stack
         params = params.inner
-    cands = ["scan", "hybrid"]
-    if _max_units(params) <= 128:
-        cands.insert(1, "fused")
-    return cands
+    from svd_lstm_tpu.ops.gpu_recurrence import kernel_takes
+
+    if kernel_takes(params, _kernel_precision(precision)):
+        return ["scan", "fused"]
+    return ["scan"]
+
+
+def _kernel_precision(precision: str) -> str:
+    """The kernel's dot precision for a predict mode: TF32 for 'fast', IEEE
+    f32 otherwise (batch-1 'high' runs exact)."""
+    return "default" if precision == "fast" else "highest"
 
 
 def predict(params, x, impl: str = "auto", precision: str = "exact",
@@ -93,56 +76,43 @@ def predict(params, x, impl: str = "auto", precision: str = "exact",
     """Whole-run inference.
 
     x: (T, d) for batch-1 or (B, T, d) batched. Returns (T, out) / (B, T, out).
-    impl: 'auto' | 'scan' | 'fused' | 'hybrid'.
-    precision: 'exact' | 'high' | 'fast' — matmul precision modes (see the
-    module docstring for measured speed/accuracy trade-offs). 'fast'
-    applies to both batched input (bf16 x-side + VMEM-resident Pallas
-    recurrence) and batch-1 kernels (relaxed single-pass dots); 'high' is
-    batched-only (batch-1 'high' runs the exact path). Batch-1 'fast' only
-    reaches the kernel routes: with impl='scan' (or off-TPU under
-    impl='auto') the relaxed-dot flag has no carrier and the exact f32
-    scan runs — intentional, matching the batched impl='scan' escape
-    hatch's exact semantics rather than silently changing numerics.
+    impl: 'auto' | 'scan' | 'fused' (the recurrence kernel, batch-1 only).
+    precision: 'exact' | 'high' | 'fast' (module docstring). Batch-1 'fast'
+    reaches only the kernel: with impl='scan' (or off the GPU under
+    impl='auto') the exact f32 scan runs, matching the batched
+    impl='scan' escape hatch's exact semantics rather than silently
+    changing numerics.
 
     impl='auto' first consults the persistent autotune cache
     (``bench.autotune.cached_impl``, device-kind-keyed): if this exact
     (model, input, precision) was ever measured on this device (``python
     -m svd_lstm_tpu tune`` or ``tuned_impl``), the measured winner
-    dispatches instead of the fitted v5e selection table below — tune
-    once, every later predict benefits. Never-tuned shapes and other
-    devices fall back to the table; stale entries that are no longer
-    valid for the input are ignored. ``consult_cache=False`` bypasses the
-    lookup (``bench.autotune.autotune`` measures with it off so a
-    pre-existing entry cannot redirect the 'auto' candidate mid-measure).
+    dispatches; otherwise the rule in the module docstring applies. Stale
+    entries that are no longer valid for the input are ignored.
+    ``consult_cache=False`` bypasses the lookup (``bench.autotune.autotune``
+    measures with it off so a pre-existing entry cannot redirect the
+    'auto' candidate mid-measure).
     """
     from svd_lstm_tpu.utils.precision import cast_params, matmul_scope
 
     scope = matmul_scope(precision)  # also validates the mode name
-    if impl not in ("auto", "scan", "fused", "hybrid"):
+    if impl not in IMPLS:
         # a typo'd impl must not silently route to the slow exact scan
-        raise ValueError(
-            f"unknown impl {impl!r}; expected 'auto' | 'scan' | 'fused' | 'hybrid'"
-        )
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     if impl == "auto" and consult_cache:
         from svd_lstm_tpu.bench.autotune import cached_impl
 
         hit = cached_impl(params, x, precision)
-        # 'auto' as the cached winner means the default dispatch below IS
-        # the measured-best path (the batched fast mode's Pallas route) —
-        # fall through. A hit outside the currently-valid set is stale
-        # (e.g. a different checkpoint family at the same shapes after a
-        # cache-key change) and is ignored rather than raised.
         if hit is not None and hit != "auto" and hit in valid_impls(
             params, x, precision
         ):
             impl = hit
     batched = x.ndim == 3
     # Conv hybrids: peel the causal-conv front end off FIRST (one whole-
-    # sequence MXU-tiled conv, exact f32) and recurse on the inner LSTM
-    # stack, which then gets the full impl/precision dispatch below. Early
-    # so neither the batched fast path nor _max_units ever sees the
-    # wrapper type.
+    # sequence conv, exact f32) and recurse on the inner LSTM stack, which
+    # then gets the full impl/precision dispatch below.
     if hasattr(params, "inner") or hasattr(params, "conv"):
+        import jax
         import jax.numpy as jnp
 
         from svd_lstm_tpu.models.conv import causal_conv1d
@@ -158,138 +128,73 @@ def predict(params, x, impl: str = "auto", precision: str = "exact",
         h = h if batched else h[0]
         return predict(inner, h, impl=impl, precision=precision,
                        consult_cache=consult_cache)
-    if batched and impl in ("fused", "hybrid"):
-        raise ValueError(
-            f"impl={impl!r} kernels are batch-1 only; use impl='auto' (Pallas "
-            "batched fast path on TPU) or impl='scan' (pure XLA) for "
-            "(B, T, d) input"
-        )
-    if impl == "fused" and _max_units(params) > 128:
-        # same contract as the batched guard: an explicit impl request must
-        # not silently run a different implementation (the fused kernels'
-        # VMEM budget is the n <= 128 rule; a wide 'fused' would otherwise
-        # fall through to the scan or hybrid while the caller benchmarks it
-        # under the wrong label)
-        raise ValueError(
-            f"impl='fused' requires every layer n <= 128 (got "
-            f"{_max_units(params)}); use impl='hybrid' (wide-model kernel) "
-            "or impl='auto'"
-        )
-    if batched and precision != "exact":
-        import jax.numpy as jnp
-
-        if precision == "fast":
-            # In bf16 the factored forms' extra intermediates cost more than
-            # the MXU time they save (6.2 vs 3.3 ms at 3×512/r=64/B=256) —
-            # reconstruct to dense (exact, in f32) and run the dense path
-            # instead. See BENCH_NOTES.md.
-            if isinstance(params, ReducedModelParams):
-                from svd_lstm_tpu.ops.layouts import reconstruct_dense_model
-
-                params = reconstruct_dense_model(params)
-            elif isinstance(params, SingularModelParams):
-                from svd_lstm_tpu.factor.svd import singular_to_dense
-
-                params = singular_to_dense(params)
-            if _on_tpu() and impl != "scan":
-                # VMEM-resident Pallas recurrence: 2.12 ms vs the XLA bf16
-                # scan's 3.32 at 3×512/B=256/T=128 (7.4× vs exact), and
-                # better accuracy (f32 accumulation in-kernel). Narrow
-                # layers fall back to the bf16 scan inside. impl='scan'
-                # keeps the pure-XLA path (the documented escape hatch
-                # from the Mosaic toolchain bugs in ops/pallas_batched.py).
-                from svd_lstm_tpu.ops.pallas_batched import batched_forward_fast
-
-                return batched_forward_fast(params, x)
-            params = cast_params(params, jnp.bfloat16)
-            x = x.astype(jnp.bfloat16)
-            out = predict(params, x, impl=impl, precision="exact",
-                          consult_cache=consult_cache)
-            return out.astype(jnp.float32)
-        with scope:
-            return predict(params, x, impl=impl, precision="exact",
-                           consult_cache=consult_cache)
-    x1 = None if batched else x
-    # batch-1 fast mode: relaxed in-kernel dots (single-pass bf16 multiply,
-    # f32 accumulate). The f32-forced 3-pass emulation is not free even in
-    # the chain-bound regime: fused 4x40 3.71 -> 2.50 ms, wide reduced
-    # hybrid 9.83 -> 5.40 ms, rel.err ~6e-3
-    # (scripts/probe_wide_default_precision.py). On CPU "default" precision
-    # is exact f32, so the flag is harmless off-TPU.
-    dp = "default" if (not batched and precision == "fast") else None
-
     is_dense = isinstance(params, StackedLSTMParams)
     is_singular = isinstance(params, SingularModelParams)
     is_reduced = isinstance(params, ReducedModelParams)
     if not (is_dense or is_singular or is_reduced):
         raise TypeError(f"unknown model params: {type(params)}")
+    if impl == "fused" and "fused" not in valid_impls(params, x, precision):
+        # an explicit impl request must not silently run a different
+        # implementation (and be benchmarked under the wrong label)
+        raise ValueError(
+            "impl='fused' (the recurrence kernel) takes batch-1 input whose "
+            "layers fit ops.gpu_recurrence.MAX_UNITS at this precision (got "
+            f"x.ndim={x.ndim}, widest layer {_max_units(params)}, precision "
+            f"{precision!r}); use impl='scan' or impl='auto'"
+        )
+    if batched and precision != "exact":
+        import jax.numpy as jnp
 
-    use_kernels = impl in ("fused", "hybrid") or (
-        impl == "auto" and _on_tpu() and not batched
-    )
+        if precision == "fast":
+            # bf16 params and activations through the XLA scan (cuBLAS runs
+            # the per-step product on the tensor cores). The factored forms'
+            # extra intermediates cost more than they save in bf16, so
+            # reconstruct to dense (exact, in f32) first.
+            if is_reduced:
+                from svd_lstm_tpu.ops.layouts import reconstruct_dense_model
 
-    if is_dense:
-        if use_kernels:
-            if _max_units(params) <= 128 and impl != "hybrid":
-                from svd_lstm_tpu.ops.pallas_lstm import fused_dense_stack_pallas
-
-                return fused_dense_stack_pallas(params, x1, dot_precision=dp)
-            if dp is not None or impl == "hybrid":
-                # wide dense in fast mode: the hybrid kernel beats the XLA
-                # scan (10.2 vs 13.9 ms at 3x512) once dots are relaxed
-                from svd_lstm_tpu.ops.pallas_lstm import dense_forward_hybrid
-
-                return dense_forward_hybrid(params, x1, dot_precision=dp)
-        xb = x if batched else x[None]
-        out = stacked_lstm_apply(params, xb, return_sequences=True)
-        return out if batched else out[0]
-
-    if is_singular:
-        if use_kernels:
-            if _max_units(params) <= 128 and impl != "hybrid":
-                from svd_lstm_tpu.ops.layouts import singular_forward_fused
-
-                return singular_forward_fused(params, x1, dot_precision=dp)
-            if dp is not None or impl == "hybrid":
-                # exact dense collapse, then the wide-dense fast path
+                params = reconstruct_dense_model(params)
+            elif is_singular:
                 from svd_lstm_tpu.factor.svd import singular_to_dense
-                from svd_lstm_tpu.ops.pallas_lstm import dense_forward_hybrid
 
-                return dense_forward_hybrid(
-                    singular_to_dense(params), x1, dot_precision=dp
-                )
-        xb = x if batched else x[None]
-        out = singular_lstm_apply(params, xb, return_sequences=True)
-        return out if batched else out[0]
+                params = singular_to_dense(params)
+            out = predict(cast_params(params, jnp.bfloat16), x.astype(jnp.bfloat16),
+                          impl=impl, precision="exact", consult_cache=consult_cache)
+            return out.astype(jnp.float32)
+        with scope:
+            return predict(params, x, impl=impl, precision="exact",
+                           consult_cache=consult_cache)
 
-    # reduced
-    n = _max_units(params)
-    if use_kernels:
-        if n <= 128 and impl != "hybrid":
-            from svd_lstm_tpu.ops.layouts import reduced_forward_fused
+    if impl == "fused" or (
+        impl == "auto" and not batched and platform() == "gpu"
+        and "fused" in valid_impls(params, x, precision)
+    ):
+        from svd_lstm_tpu.ops.gpu_recurrence import stack_forward
 
-            return reduced_forward_fused(params, x1, dot_precision=dp)
-        if n >= 256 or impl == "hybrid":
-            # merged: folded two-step recurrence (0.71× best dense at
-            # 3×512/r=32 exact, 0.53× in fast mode); split: packed-B
-            # two-step (0.79× — one dot for all gates' projections +
-            # per-gate row-compact [I|C])
-            from svd_lstm_tpu.ops.pallas_lstm import reduced_forward_hybrid
-
-            return reduced_forward_hybrid(params, x1, dot_precision=dp)
-        if dp is not None:
-            # mid-width (128 < n < 256) fast mode: honor the precision
-            # request via dense-reconstructed execution through the
-            # relaxed hybrid kernel (the n<=128 rule's layout, one dot
-            # per step, single-pass)
+        if is_reduced:
             from svd_lstm_tpu.ops.layouts import reconstruct_dense_model
-            from svd_lstm_tpu.ops.pallas_lstm import dense_forward_hybrid
 
-            return dense_forward_hybrid(
-                reconstruct_dense_model(params), x1, dot_precision=dp
-            )
-    from svd_lstm_tpu.ops.layouts import reduced_forward_dense_recurrent
+            params = reconstruct_dense_model(params)
+        elif is_singular:
+            from svd_lstm_tpu.factor.svd import singular_to_dense
+
+            params = singular_to_dense(params)
+        return stack_forward(params, x, precision=_kernel_precision(precision))
 
     xb = x if batched else x[None]
-    out = reduced_forward_dense_recurrent(params, xb, return_sequences=True)
+    if is_dense:
+        out = stacked_lstm_apply(params, xb, return_sequences=True)
+    elif is_singular:
+        out = singular_lstm_apply(params, xb, return_sequences=True)
+    else:
+        out = _reduced_apply(params, xb)
     return out if batched else out[0]
+
+
+def _reduced_apply(params, xb):
+    """The faster XLA form of a reduced model: the dense-reconstructed
+    recurrence scan (one dependent product per step) beat the two-step
+    scan at 3x512 r=24 batch-1 on the H100 (PERF.md)."""
+    from svd_lstm_tpu.ops.layouts import reduced_forward_dense_recurrent
+
+    return reduced_forward_dense_recurrent(params, xb, return_sequences=True)

@@ -1,16 +1,13 @@
 """Measured-best implementation selection with a persistent cache.
 
-``api.predict(impl="auto")`` routes through a selection table that was
-fitted empirically on v5e (see the api module docstring). That table is a
-snapshot: a different TPU generation, an unusual model shape, or a future
-compiler can move the crossover points. This module re-derives the choice
-*on the device actually present* — it times every implementation that is
-valid for the given model/input (``bench.devtime`` device time, so the
-numbers mean what they say even through a tunneled backend) and returns
-the winner, optionally memoized to a JSON cache keyed by model family,
-per-layer leaf shapes, parameter and input dtypes, input shape, precision,
-and backend device kind (not just platform — crossovers move between TPU
-generations).
+``api.predict(impl="auto")`` routes by a fixed rule (the api module
+docstring). An unusual model shape or a future compiler can move the
+crossover, so this module re-derives the choice *on the device actually
+present* — it times every implementation that is valid for the given
+model/input (``bench.devtime`` device time) and returns the winner,
+optionally memoized to a JSON cache keyed by model family, per-layer leaf
+shapes, parameter and input dtypes, input shape, precision, and backend
+device kind (not just platform — crossovers move between devices).
 
 The reference had no analog — it hardcoded one execution path and
 published the resulting 1.31–1.39× loss (plots/timing_plot.png). Here
@@ -22,6 +19,9 @@ Usage::
 
     choice = autotune(params, x)            # TuneResult: winner + table
     y = predict_tuned(params, x)            # measure once, then cached
+
+Every measuring function takes ``timer(fn, *args, repeats=...) -> ms``,
+``bench.devtime.device_time_ms`` by default (which needs the GPU).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import NamedTuple, Sequence
 import jax
 import jax.numpy as jnp
 
+from svd_lstm_tpu.bench.devtime import device_time_ms
 from svd_lstm_tpu.models.lstm import StackedLSTMParams
 from svd_lstm_tpu.models.reduced import ReducedModelParams
 from svd_lstm_tpu.models.singular import SingularModelParams
@@ -85,10 +86,9 @@ def _dims(params) -> list:
 
 def cache_key(params, x, precision: str) -> str:
     """Stable string key: family, per-layer leaf shapes, parameter dtype,
-    input shape and dtype, precision, backend device kind. ``device_kind``
-    (e.g. 'TPU v5e' vs 'TPU v4'), not just platform — crossover points
-    move between TPU generations, so a cached winner must not outlive the
-    device it was measured on. Parameter dtype is keyed for the same
+    input shape and dtype, precision, backend device kind. ``device_kind``,
+    not just platform — crossover points move between device models, so
+    a cached winner must not outlive the device it was measured on. Parameter dtype is keyed for the same
     reason as input dtype: a bf16-cast model changes matmul pass counts
     and can move the crossovers."""
     dev = jax.devices()[0]
@@ -112,8 +112,8 @@ def candidates(params, x, precision: str = "exact") -> list[str]:
     """Implementations with distinct execution paths for this
     (model, input, precision) — delegates to ``api.valid_impls`` so the
     candidate set lives next to predict()'s dispatch and cannot drift
-    (e.g. batched 'auto' aliases 'scan' except in fast mode on TPU;
-    measuring both would pick a winner by noise)."""
+    (e.g. batched 'auto' aliases 'scan'; measuring both would pick a
+    winner by noise)."""
     from svd_lstm_tpu.api import valid_impls
 
     return valid_impls(params, x, precision)
@@ -125,18 +125,19 @@ def autotune(
     precision: str = "exact",
     impls: Sequence[str] | None = None,
     repeats: int = 2,
+    timer=None,
 ) -> TuneResult:
     """Time every valid ``api.predict`` implementation and pick the winner.
 
-    Candidates that fail to compile/execute on this backend (e.g. Pallas
-    kernels off-TPU) are recorded in ``failed`` and skipped — at least the
-    XLA scan always survives. ``impls`` overrides the candidate list.
+    Candidates that fail to compile/execute are recorded in ``failed`` and
+    skipped. ``impls`` overrides the candidate list.
     """
     from svd_lstm_tpu.api import predict
-    from svd_lstm_tpu.bench.devtime import device_time_ms
+
+    timer = timer or device_time_ms
 
     # Measure in the caller's dtype — a bf16 input times differently
-    # (single-pass vs 3-pass matmuls) and has its own cache entry.
+    # (other matmul precision) and has its own cache entry.
     x = jnp.asarray(x)
     table: dict[str, float] = {}
     failed: dict[str, str] = {}
@@ -149,7 +150,7 @@ def autotune(
             )
         )
         try:
-            table[impl] = device_time_ms(fn, params, x, repeats=repeats)
+            table[impl] = timer(fn, params, x, repeats=repeats)
         except Exception as e:  # noqa: BLE001 — per-candidate isolation
             failed[impl] = f"{type(e).__name__}: {e}"
     if not table:
@@ -232,35 +233,33 @@ def cached_impl(
     if one was ever tuned (``tune`` CLI / ``tuned_impl``), else None —
     the read-only lookup ``api.predict(impl="auto")`` consults so one
     ``tune`` run redirects every later auto-dispatch on the same device.
-    Keys include the backend device kind, so a v5e-measured winner never
-    leaks onto a v4/v6e (those fall back to predict's fitted table)."""
+    Keys include the backend device kind, so a winner measured on one
+    device model never leaks onto another (which keeps predict's rule)."""
     return _cached_value(cache_key(params, x, precision), cache_path)
 
 
 def cached_train_flags(
     params, x, cache_path: str | None = None
-) -> tuple[str, bool, bool] | None:
-    """The measured-best ``(matmul_precision, recurrence_kernel,
-    compact_gates)`` TrainConfig flags for this (model, window shape,
-    device) if ever tuned (``tune --train`` / ``tuned_train_flags``),
-    else None — the read-only training analog of :func:`cached_impl`."""
+) -> tuple[str, bool] | None:
+    """The measured-best ``(matmul_precision, recurrence_kernel)``
+    TrainConfig flags for this (model, window shape, device) if ever tuned
+    (``tune --train`` / ``tuned_train_flags``), else None — the read-only
+    training analog of :func:`cached_impl`."""
     val = _cached_value(train_cache_key(params, x), cache_path)
     if val is None:
         return None
     return _decode_train_flags(val)
 
 
-def encode_train_flags(prec: str, kernel: bool, compact: bool) -> str:
-    return f"{prec}|{int(kernel)}|{int(compact)}"
+def encode_train_flags(prec: str, kernel: bool) -> str:
+    return f"{prec}|{int(kernel)}"
 
 
-def _decode_train_flags(val: str) -> tuple[str, bool, bool]:
-    """Decode ``prec|kernel[|compact]`` (compact absent in pre-round-4
-    cache entries -> False)."""
+def _decode_train_flags(val: str) -> tuple[str, bool]:
+    """Decode ``prec|kernel`` (a trailing field of older entries, whose
+    layout option no longer exists, is ignored)."""
     parts = val.split("|")
-    prec, kernel = parts[0], bool(int(parts[1]))
-    compact = bool(int(parts[2])) if len(parts) > 2 else False
-    return prec, kernel, compact
+    return parts[0], bool(int(parts[1]))
 
 
 def store_tuned(key: str, value: str, cache_path: str | None = None) -> str:
@@ -277,7 +276,8 @@ def store_tuned(key: str, value: str, cache_path: str | None = None) -> str:
 
 
 def tuned_impl(
-    params, x, precision: str = "exact", cache_path: str | None = None
+    params, x, precision: str = "exact", cache_path: str | None = None,
+    timer=None,
 ) -> str:
     """Best impl for this (model, input, precision, platform) — measured
     once, then served from the in-memory + on-disk cache. Pass
@@ -287,19 +287,21 @@ def tuned_impl(
     key = cache_key(params, x, precision)
     impl = _cached_value(key, cache_path)
     if impl is None:
-        impl = autotune(params, x, precision=precision).impl
+        impl = autotune(params, x, precision=precision, timer=timer).impl
         if cache_path:
             _store_disk(cache_path, key, impl)
     _MEM_CACHE[key] = impl
     return impl
 
 
-def predict_tuned(params, x, precision: str = "exact", cache_path: str | None = None):
+def predict_tuned(params, x, precision: str = "exact", cache_path: str | None = None,
+                  timer=None):
     """``api.predict`` through the measured-best implementation."""
     from svd_lstm_tpu.api import predict
 
     return predict(
-        params, x, impl=tuned_impl(params, x, precision, cache_path), precision=precision
+        params, x, impl=tuned_impl(params, x, precision, cache_path, timer),
+        precision=precision,
     )
 
 
@@ -312,26 +314,19 @@ class TrainTuneResult(NamedTuple):
     ms: float                      # its measured full-step device time
     table: dict[str, float]        # regime -> ms for every candidate
     failed: dict[str, str]         # regime -> error for candidates that died
-    compact_gates: bool = False    # winning TrainConfig.compact_gates
 
 
-# (name, TrainConfig.matmul_precision, TrainConfig.recurrence_kernel,
-# TrainConfig.compact_gates).
+# (name, TrainConfig.matmul_precision, TrainConfig.recurrence_kernel).
 # f32_scan is the exact regime — measured for context, never the winner:
 # exact training has exactly one implementation, so there is nothing to
-# tune there. The relaxed regimes share one numerics class (single-pass
-# bf16 dots, f32 accumulation) and genuinely compete: the fused kernel
-# wins the narrow/uniform stacks it supports (every family — dense,
-# singular, reduced, conv hybrids), the bf16 scan wins wherever the
-# kernel dispatch falls back (mixed wide stacks); the compact-layout
-# kernel competes on the narrow dense stacks whose gates pack >= 2 per
-# 128-lane block (ops/pallas_train_compact.py).
+# tune there. The relaxed regimes compete: the kernel pair (TF32 dots)
+# takes the narrow stacks it supports (every family — dense, singular,
+# reduced, conv hybrids); the TF32 and bf16 scans take the rest.
 _TRAIN_REGIMES = (
-    ("f32_scan", "float32", False, False),
-    ("tf32_scan", "tensorfloat32", False, False),
-    ("bf16_scan", "bfloat16", False, False),
-    ("fused_kernel", "bfloat16", True, False),
-    ("fused_kernel_compact", "bfloat16", True, True),
+    ("f32_scan", "float32", False),
+    ("tf32_scan", "tensorfloat32", False),
+    ("bf16_scan", "bfloat16", False),
+    ("fused_kernel", "tensorfloat32", True),
 )
 
 
@@ -390,7 +385,7 @@ def _train_apply_for(params):
 
 
 def autotune_train(
-    params, x, y, repeats: int = 2, include_exact: bool = True
+    params, x, y, repeats: int = 2, include_exact: bool = True, timer=None
 ) -> TrainTuneResult:
     """Time the full training step (value_and_grad + optimizer update) for
     every training regime valid for this model and pick the fastest
@@ -401,17 +396,15 @@ def autotune_train(
     measured step is shaped exactly like the production step, including
     the family's σ-mask optimizer and regularizer for singular models.
     The kernel regime is skipped (recorded in ``failed``) if the family
-    resolution ever yields no kernel swap — measuring the identical scan
-    twice would pick a winner by noise (every current family has one:
-    ops/pallas_train.py, ops/singular_train.py, ops/reduced_train.py,
-    ops/conv_train.py).
+    resolution yields no kernel swap — measuring the identical scan twice
+    would pick a winner by noise.
     """
     import optax
 
-    from svd_lstm_tpu.bench.devtime import device_time_ms
     from svd_lstm_tpu.config import TrainConfig
     from svd_lstm_tpu.train.loop import resolve_train_apply_fn
 
+    timer = timer or device_time_ms
     x = jnp.asarray(x)
     y = jnp.asarray(y)
     base_apply, loss_extra, make_opt = _train_apply_for(params)
@@ -428,10 +421,7 @@ def autotune_train(
 
         @jax.jit
         def step(p, s, xx, yy):
-            if scope:
-                with jax.default_matmul_precision(scope):
-                    l, g = jax.value_and_grad(loss_fn)(p, xx, yy)
-            else:
+            with jax.default_matmul_precision(scope):
                 l, g = jax.value_and_grad(loss_fn)(p, xx, yy)
             u, s = optimizer.update(g, s, p)
             return optax.apply_updates(p, u), s, l
@@ -440,37 +430,20 @@ def autotune_train(
 
     table: dict[str, float] = {}
     failed: dict[str, str] = {}
-    for name, prec, kernel, comp in _TRAIN_REGIMES:
+    for name, prec, kernel in _TRAIN_REGIMES:
         if name == "f32_scan" and not include_exact:
             continue
+        apply_fn = base_apply
         if kernel:
-            if comp and not _compact_candidate(params, x):
-                # the compact apply would silently fall through to the
-                # P-layout here — measuring the same program twice would
-                # pick a winner by noise
-                failed[name] = "compact layout ineligible for this model"
-                continue
             apply_fn, using_kernel = resolve_train_apply_fn(
-                TrainConfig(recurrence_kernel=True, compact_gates=comp),
-                base_apply,
+                TrainConfig(recurrence_kernel=True), base_apply
             )
             if not using_kernel:
                 failed[name] = "no training kernel for this model family"
                 continue
-            # Measure inside the SAME bf16 scope the recommended
-            # TrainConfig(matmul_precision="bfloat16", recurrence_kernel=
-            # True) applies in production (train/loop.py wraps the whole
-            # loss in the scope): the kernel's own dots are pinned to
-            # DEFAULT and the dense-view reconstruction to HIGHEST, so the
-            # scope only relaxes the intended parts (head/loss/conv dots) —
-            # without it the measured step differed from the recommended one.
-            scope = "bfloat16"
-        else:
-            apply_fn, scope = base_apply, prec
         try:
-            table[name] = device_time_ms(
-                mk_step(apply_fn, scope), params, opt_state, x, y,
-                repeats=repeats,
+            table[name] = timer(
+                mk_step(apply_fn, prec), params, opt_state, x, y, repeats=repeats
             )
         except Exception as e:  # noqa: BLE001 — per-candidate isolation
             failed[name] = f"{type(e).__name__}: {e}"
@@ -478,27 +451,13 @@ def autotune_train(
     if not relaxed:
         raise RuntimeError(f"every relaxed training regime failed: {failed}")
     best = min(relaxed, key=relaxed.get)
-    prec, kernel, comp = {
-        n: (p, k, c) for n, p, k, c in _TRAIN_REGIMES
-    }[best]
+    prec, kernel = {n: (p, k) for n, p, k in _TRAIN_REGIMES}[best]
     return TrainTuneResult(
         matmul_precision=prec,
         recurrence_kernel=kernel,
-        compact_gates=comp,
         ms=relaxed[best],
         table=table,
         failed=failed,
-    )
-
-
-def _compact_candidate(params, x) -> bool:
-    """Whether the compact-layout train regime is a distinct program for
-    this model: dense family only (the singular/reduced/conv engines run
-    their own dense-view kernels) and the stack must pack."""
-    from svd_lstm_tpu.ops.pallas_train_compact import compact_eligible
-
-    return _family(params) == "dense" and compact_eligible(
-        params, int(x.shape[-1])
     )
 
 
@@ -525,22 +484,19 @@ def train_cache_key(params, x) -> str:
 
 
 def tuned_train_flags(
-    params, x, y, cache_path: str | None = None
-) -> tuple[str, bool, bool]:
-    """Measured-best ``(matmul_precision, recurrence_kernel,
-    compact_gates)`` TrainConfig flags for this (model, window shape,
-    device) — measured once, then served from the same in-memory/disk
-    cache as ``tuned_impl``. Apply as ``dataclasses.replace(cfg,
-    matmul_precision=p, recurrence_kernel=k, compact_gates=c)``."""
+    params, x, y, cache_path: str | None = None, timer=None
+) -> tuple[str, bool]:
+    """Measured-best ``(matmul_precision, recurrence_kernel)`` TrainConfig
+    flags for this (model, window shape, device) — measured once, then
+    served from the same in-memory/disk cache as ``tuned_impl``. Apply as
+    ``dataclasses.replace(cfg, matmul_precision=p, recurrence_kernel=k)``."""
     if cache_path is None:
         cache_path = default_cache_path()
     key = train_cache_key(params, x)
     val = _cached_value(key, cache_path)
     if val is None:
-        r = autotune_train(params, x, y, include_exact=False)
-        val = encode_train_flags(
-            r.matmul_precision, r.recurrence_kernel, r.compact_gates
-        )
+        r = autotune_train(params, x, y, include_exact=False, timer=timer)
+        val = encode_train_flags(r.matmul_precision, r.recurrence_kernel)
         if cache_path:
             _store_disk(cache_path, key, val)
     _MEM_CACHE[key] = val

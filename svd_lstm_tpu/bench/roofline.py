@@ -1,30 +1,13 @@
-"""Roofline accounting for the recurrence kernels (SURVEY §5: 'roofline
-check for the Pallas kernel').
+"""Shape-derived work counts and the device roofline.
 
-Floor model for the fused batch-1 kernel (round-2 measurement,
-scripts/probe_chain_decomposition.py):
+Everything here is computed from shapes alone: the multiply-accumulates
+(MACs) a step needs and the bytes it must move. Dividing by a device's
+published peaks gives the least time the device could take (the roofline);
+dividing that by a measured time gives the roofline share. Measured times
+come only from runs on the card.
 
-    t_step = CHAIN_NS_PER_STAGE * stages + bytes_streamed / V5E_VMEM_BPS
-
-fitted on the P-layout fused kernel at 4×{30,40,64,96}, T=6656:
-381 ns (4-layer stack → ~95 ns per dependent layer stage) + 3.72 TB/s;
-residuals ±3%. At the reference scale (4×40) the chain term is 69% of
-measured time, so byte-reduction schemes (rank truncation, weight
-compaction) cannot buy more than ~31% there — and each EXTRA dependent
-dot on the chain costs more than any byte saving (measured: compact gate
-packing −18%, single-dot merge −9%, genuinely-factored two-step
-1.6–1.75× vs dense; scripts/probe_compact_gates.py, probe_single_dot.py,
-probe_reduced_floor.py).
-
-Round 1 modeled a single-component 1700 GB/s streaming roofline and
-reported the kernel at 64% of it; the probes above falsified that model
-(halving streamed bytes made the kernel slower). Against the fitted
-two-component floor the kernel measures 99–101% — it is AT its hardware
-floor.
-
-This module computes the per-step streamed bytes and MACs for a model in
-the kernel's actual padded layout ("p" or "compact") and reports the
-model-implied floor next to a measured time.
+``PEAKS`` is keyed by ``jax.Device.device_kind``; a device that is not in
+the table is an error, not a default.
 """
 
 from __future__ import annotations
@@ -32,80 +15,81 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
-V5E_VMEM_GBPS = 3720.0       # fitted VMEM streaming bandwidth (probe_chain_decomposition)
-CHAIN_NS_PER_STAGE = 95.0    # fitted per-layer dependent-stage latency, f32 matvec+gates
-V5E_MXU_MACS = 1.0e14 / 2    # ~100 TFLOP/s f32 → 50 T MAC/s
-V5E_HBM_GBPS = 819.0         # v5e HBM bandwidth (public spec)
-V5E_BF16_MACS = 197e12 / 2   # v5e bf16 peak → MAC/s (DEFAULT-precision dots)
-TRAIN_DOT_ISSUE_NS = 57.0    # fitted per-dependent-dot issue latency
-                             # (probe_train_bwd_vpu.py, 4x40/B=32)
-V5E_GATE_ELEMS_PER_S = 3.2e11  # fitted fwd+bwd gate-VPU rate
-                               # (linear-gate kernel substitutions)
-
-from svd_lstm_tpu.utils.linalg import LANE  # canonical lane width
-
-SUB = 8
+from svd_lstm_tpu.ops.gpu_recurrence import BLOCK_ROWS, gate_width
 
 
-def _tiles(rows: int, cols: int) -> int:
-    return -(-rows // SUB) * -(-cols // LANE)
+@dataclasses.dataclass(frozen=True)
+class Peaks:
+    """Published dense peaks of one device."""
+
+    bf16_flops: float
+    tf32_flops: float
+    f32_flops: float       # outside the tensor cores
+    hbm_bytes_per_s: float
+    source: str
+
+
+_H100_SXM = Peaks(
+    bf16_flops=989e12,
+    tf32_flops=495e12,
+    f32_flops=67e12,
+    hbm_bytes_per_s=3.35e12,
+    source="NVIDIA H100 SXM data sheet (dense, at the 700 W limit)",
+)
+
+PEAKS = {"NVIDIA H100 80GB HBM3": _H100_SXM}
+
+# Which peak a matmul precision runs at on the tensor cores.
+_PRECISION_PEAK = {"bfloat16": "bf16_flops", "tensorfloat32": "tf32_flops",
+                   "float32": "f32_flops"}
+
+
+def peaks(device_kind: str) -> Peaks:
+    """The peaks of ``device_kind``; raises for a device not in the table."""
+    if device_kind not in PEAKS:
+        raise KeyError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        )
+    return PEAKS[device_kind]
+
+
+def roofline_ms(macs: float, nbytes: float, pk: Peaks, precision: str = "float32"):
+    """(least time in ms, bound) for ``macs`` and ``nbytes`` on ``pk``:
+    the larger of compute over the peak of ``precision`` and bytes over
+    the memory bandwidth; ``bound`` says which."""
+    flops = getattr(pk, _PRECISION_PEAK[precision])
+    compute = 2 * macs / flops * 1e3
+    memory = nbytes / pk.hbm_bytes_per_s * 1e3
+    return (compute, "compute") if compute >= memory else (memory, "memory")
 
 
 @dataclasses.dataclass
 class StepCost:
-    bytes_streamed: int
-    macs: int
-    stages: int = 0    # dependent matvec->gate stages on the per-step chain
+    """Work of one batch-1 time step of the whole stack."""
 
-    def bandwidth_floor_us(self) -> float:
-        return self.bytes_streamed / (V5E_VMEM_GBPS * 1e3)
+    bytes_streamed: int   # recurrent weights read per step (f32)
+    macs: int             # x-side + h-side MACs per step
+    stages: int = 0       # dependent products on the per-step chain
 
-    def compute_floor_us(self) -> float:
-        return self.macs / (V5E_MXU_MACS * 1e-6)
+    def bandwidth_floor_us(self, pk: Peaks = _H100_SXM) -> float:
+        return self.bytes_streamed / pk.hbm_bytes_per_s * 1e6
 
-    def chain_floor_us(self) -> float:
-        return self.stages * CHAIN_NS_PER_STAGE * 1e-3
-
-    def floor_us(self) -> float:
-        """Two-component floor: chain latency + VMEM streaming."""
-        return self.chain_floor_us() + self.bandwidth_floor_us()
+    def compute_floor_us(self, pk: Peaks = _H100_SXM) -> float:
+        return 2 * self.macs / pk.f32_flops * 1e6
 
 
-def _gate_cols(n: int, layout: str) -> int:
-    """Lane width of one layer's packed gate block.
-
-    * ``"p"``: each gate in its own 128-lane block -> 4*ceil(n/128)*128.
-    * ``"compact"``: gates packed 4/2/1 per block (ops.pallas_lstm
-      C-layout) -> (4//k)*128 with k = gate_group_size(n).
-    """
-    if layout == "compact":
-        # derive from the kernel's own packing rule so the model cannot
-        # drift from what ops/pallas_lstm actually streams
-        from svd_lstm_tpu.utils.linalg import gate_group_size
-
-        k = gate_group_size(n, LANE)
-        if k > 1:
-            return (4 // k) * LANE
-    return 4 * (-(-n // LANE) * LANE)
-
-
-def dense_step_cost(
-    input_dim: int, units: Sequence[int], layout: str = "p"
-) -> StepCost:
-    """Per-step streamed bytes / MACs of the fused dense kernel in its
-    row-compact, gate-aligned layout (``layout`` = "p" or "compact")."""
-    tiles = 0
+def dense_step_cost(input_dim: int, units: Sequence[int]) -> StepCost:
+    """Per-step MACs of a dense stack and the recurrent-weight bytes a
+    step reads if nothing stays on chip (one (n, 4n) f32 U per layer)."""
     macs = 0
+    nbytes = 0
     d = input_dim
     for n in units:
-        zw = _gate_cols(n, layout)
-        tiles += _tiles(d, zw)  # W
-        tiles += _tiles(n, zw)  # U
         macs += d * 4 * n + n * 4 * n
+        nbytes += n * 4 * n * 4
         d = n
-    return StepCost(
-        bytes_streamed=tiles * SUB * LANE * 4, macs=macs, stages=len(units)
-    )
+    return StepCost(bytes_streamed=nbytes, macs=macs, stages=len(units))
 
 
 def reduced_step_cost(
@@ -113,125 +97,47 @@ def reduced_step_cost(
     units: Sequence[int],
     ranks: Sequence[int],
     merged: bool = True,
-    layout: str = "p",
 ) -> StepCost:
-    """Per-step cost of the folded two-step kernel ((v@B)@[I|C] per side).
-    ``layout`` applies to the [I|C] gate columns (the B factor's rank
-    columns always pad to one 128-lane block)."""
-    tiles = 0
+    """Per-step work of the two-step reduced cell ((v@B)@[I|C] per side,
+    per matrix when merged, per gate when split)."""
     macs = 0
+    nbytes = 0
     d = input_dim
     for n, r in zip(units, ranks):
-        npg = -(-n // LANE) * LANE
-        rp = -(-r // LANE) * LANE
-        zw = _gate_cols(n, layout)
         if merged:
-            for rows in (d, n):  # input side then recurrent side
-                tiles += _tiles(rows, rp)        # B
-                tiles += _tiles(r, zw)           # [I|C]
-                macs += rows * r + r * 4 * n
+            macs += d * r + r * 4 * n + n * r + r * 4 * n
+            nbytes += (n * r + r * 4 * n) * 4
         else:
-            for rows in (d, n):
-                tiles += 4 * (_tiles(rows, rp) + _tiles(r, npg))
-                macs += 4 * (rows * r + r * n)
+            macs += 4 * (d * r + r * n + n * r + r * n)
+            nbytes += 4 * (n * r + r * n) * 4
         d = n
-    # the folded two-step recurrence puts TWO dependent dots per layer on
-    # the chain (h@B then (hB)@[I|C])
-    return StepCost(
-        bytes_streamed=tiles * SUB * LANE * 4, macs=macs, stages=2 * len(units)
-    )
+    # two dependent products per layer on the chain (h@B, then (hB)@[I|C])
+    return StepCost(bytes_streamed=nbytes, macs=macs, stages=2 * len(units))
 
 
-def report(cost: StepCost, measured_us_per_step: float | None = None) -> str:
+def report(cost: StepCost, measured_us_per_step: float | None = None,
+           pk: Peaks = _H100_SXM) -> str:
     lines = [
-        f"streamed/step: {cost.bytes_streamed/1024:.1f} KiB  "
-        f"-> bandwidth term {cost.bandwidth_floor_us()*1e3:.1f} ns/step",
-        f"chain: {cost.stages} dependent stages "
-        f"-> {cost.chain_floor_us()*1e3:.0f} ns/step",
-        f"floor (chain + streaming roofline): {cost.floor_us()*1e3:.0f} ns/step",
-        f"MACs/step: {cost.macs}  -> compute floor {cost.compute_floor_us()*1e3:.3f} ns/step",
+        f"recurrent weights/step: {cost.bytes_streamed/1024:.1f} KiB -> "
+        f"memory roofline {cost.bandwidth_floor_us(pk)*1e3:.2f} ns/step",
+        f"MACs/step: {cost.macs} -> f32 compute roofline "
+        f"{cost.compute_floor_us(pk)*1e3:.3f} ns/step",
+        f"chain: {cost.stages} dependent products per step",
     ]
     if measured_us_per_step is not None:
-        lines.append(
-            f"measured: {measured_us_per_step*1e3:.1f} ns/step "
-            f"({measured_us_per_step/cost.floor_us()*100:.0f}% of floor)"
-        )
+        lines.append(f"measured: {measured_us_per_step*1e3:.1f} ns/step")
     return "\n".join(lines)
-
-
-# ---------------------------------------------------------------------------
-# Training-step floor model (VERDICT r3 next #3)
-#
-# The batched train kernels are a different regime from the batch-1
-# inference chain above: weights stay VMEM-resident, ACTIVATIONS stream
-# from HBM, and the MXU does real work per step. The two components are
-# therefore compute (executed MACs at the bf16 DEFAULT-precision peak)
-# and HBM streaming; the floor is their max (DMA overlaps compute on TPU).
-#
-# "Executed" MACs count what the kernels actually issue — including the
-# P-layout lane padding of the narrow whole-stack kernels (n=40 pads each
-# gate to 128 lanes: 3.2x lane waste; the 16-wide input pads to 128) and
-# the backward's gate recompute (the standard remat trade). model MACs
-# count the algorithmic fwd+bwd work (3x forward, the MFU convention), so
-#
-#   train_mfu        = model_flops / time / peak        (honest utilization)
-#   floor_fraction   = time / max(compute, bandwidth)   (>= 1; how close the
-#                      kernel runs to what its own layout could ever reach)
-#
-# The gap between the two IS the padding/remat price, stated rather than
-# hidden. Derivations of the per-step dot/stream counts are in the kernel
-# docstrings (ops/pallas_train_wide.py, ops/pallas_train_fused.py);
-# measured validation in BENCH_NOTES §"training floor".
-# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass
 class TrainStepCost:
-    macs_executed: int   # MACs the kernels actually issue (padding + remat)
-    macs_model: int      # 3x forward algorithmic MACs (MFU convention)
-    hbm_bytes: int       # streamed activation bytes (weights are resident)
-    total_dots: int = 0  # dependent MXU dots across the whole step (chain)
-    vpu_gate_elems: int = 0  # gate-lane elements through the fwd+bwd formulas
+    macs_model: int      # 3x the forward's algorithmic MACs (MFU convention)
+    macs_executed: int   # MACs the kernel path issues (padding + recompute)
+    hbm_bytes: int       # activation bytes the recurrence kernels move
 
-    def compute_floor_ms(self) -> float:
-        return self.macs_executed / V5E_BF16_MACS * 1e3
-
-    def bandwidth_floor_ms(self) -> float:
-        return self.hbm_bytes / (V5E_HBM_GBPS * 1e9) * 1e3
-
-    def chain_floor_ms(self) -> float:
-        """Sequential-dot issue floor: the train kernels' grid is
-        sequential in T and each timestep's dots depend on the previous
-        carry, so small batches are bound by per-dot ISSUE latency, not
-        MXU throughput. Fitted 57 ns/dot at 4x40/B=32 (the fwd+bwd
-        kernels measure 0.424 ms for 6400 dots with the VPU share
-        subtracted — probe_train_bwd_vpu.py + probe_narrow_vpu.py);
-        same physics as the batch-1 inference chain's 95 ns/stage."""
-        return self.total_dots * TRAIN_DOT_ISSUE_NS * 1e-6
-
-    def vpu_floor_ms(self) -> float:
-        """Serial VPU gate-math term: sigmoid/tanh + derivative algebra
-        on (B, gate-lanes) blocks do NOT overlap the dependent dots.
-        Fitted 3.1 ps/gate-lane-element (fwd+bwd combined) from the
-        linear-gate kernel substitutions at B=128/256 (~322 G elem/s
-        saturated; B=32 runs under-utilized, which only makes this floor
-        conservative)."""
-        return self.vpu_gate_elems / V5E_GATE_ELEMS_PER_S * 1e3
-
-    def floor_ms(self) -> float:
-        """max(MXU term + serial VPU term, HBM streaming): the dots pay
-        the larger of throughput and issue latency, the gate VPU adds on
-        top (measured: the additive model explains 94-99% of the fwd+bwd
-        kernel time at B=32/256 — BENCH_NOTES §round-5 training floor),
-        and DMA overlaps compute."""
-        mxu = max(self.compute_floor_ms(), self.chain_floor_ms())
-        return max(mxu + self.vpu_floor_ms(), self.bandwidth_floor_ms())
-
-    def floor_fraction(self, measured_ms: float) -> float:
-        return measured_ms / self.floor_ms()
-
-    def mfu(self, measured_ms: float) -> float:
-        return (2 * self.macs_model) / (measured_ms * 1e-3) / (2 * V5E_BF16_MACS)
+    def mfu(self, measured_ms: float, peak_flops: float) -> float:
+        """Model FLOP/s utilization against ``peak_flops``."""
+        return 2 * self.macs_model / (measured_ms * 1e-3) / peak_flops
 
 
 def _model_train_macs(input_dim: int, units: Sequence[int], B: int, T: int) -> int:
@@ -244,66 +150,29 @@ def _model_train_macs(input_dim: int, units: Sequence[int], B: int, T: int) -> i
     return 3 * fwd
 
 
-def wide_train_step_cost(
+def train_step_cost(
     input_dim: int, units: Sequence[int], B: int, T: int
 ) -> TrainStepCost:
-    """Fused-layer wide path (ops/pallas_train_wide.py): per layer-step the
-    fwd issues 2 dots and the bwd 6 (z recompute x2, dh, dx, dW^T, dU^T),
-    each B*n*4n MACs (layer-1's W zero-padded d->n); streams 3 (B, n)
-    blocks fwd + 6 bwd."""
-    n = units[0]
-    assert all(u == n for u in units), "uniform stacks only"
-    L = len(units)
-    macs = 8 * L * B * T * n * 4 * n
-    bytes_ = 9 * L * B * T * n * 4
+    """One training step through the recurrence kernel pair
+    (ops/gpu_recurrence.py). Per layer-step each program issues 4 forward
+    dots and 8 backward dots (4 gate recomputes, 4 for dh), each
+    (Bp, G) x (G, G) with Bp the batch padded to 16-row tiles and G the
+    gate width; the hoisted x-side products, dW and dU run unpadded in
+    XLA. The kernels stream 6 G-wide f32 rows forward (xp in, h and c out)
+    and 12 backward (xp, h_prev, c_prev, c, dh in; dxp out)."""
+    Bp = -(-B // BLOCK_ROWS) * BLOCK_ROWS
+    macs = 0
+    nbytes = 0
+    d = input_dim
+    for n in units:
+        G = gate_width(n)
+        macs += 12 * Bp * T * G * G            # kernel dots
+        macs += 3 * B * T * d * 4 * n          # x-side fwd, dW, dx
+        macs += B * T * n * 4 * n              # dU
+        nbytes += 18 * Bp * T * G * 4
+        d = n
     return TrainStepCost(
-        macs_executed=macs,
         macs_model=_model_train_macs(input_dim, units, B, T),
-        hbm_bytes=bytes_,
-        total_dots=8 * L * T,
-        vpu_gate_elems=B * T * L * 4 * n,
-    )
-
-
-def narrow_train_step_cost(
-    input_dim: int, units: Sequence[int], B: int, T: int,
-    layout: str = "p",
-) -> TrainStepCost:
-    """Whole-stack narrow kernels (ops/pallas_train_fused.py): P-layout,
-    every operand padded to 128 lanes. Per step: fwd 2L dots, bwd 6L
-    (recompute 2L, dW/dU/dh-carry 3L, inter-layer dz@W^T L-1, final dx 1),
-    each B*128*512 MACs; streams (1+2L) blocks fwd + (3+4L) bwd, each
-    (B, 128) f32. B > 512 runs ceil(B/256)-balanced chunks — same
-    per-sample cost on the padded rows.
-
-    ``layout="compact"`` (ops/pallas_train_compact.py, the dispatch's
-    resolution of compact="auto" at B >= 128): the 8 dots per layer-step
-    contract against (4/k)*128 gate lanes instead of 4*128 (k =
-    gate_group_size — at n=40, k=2 halves the executed MACs). The
-    streamed blocks are h/c-state-sized, so the HBM bytes are unchanged;
-    at 4x40/B=512 the compact floor flips from compute-bound (2.18 ms)
-    to HBM-bound (1.79 ms)."""
-    from svd_lstm_tpu.utils.linalg import gate_group_size
-
-    L = len(units)
-    assert all(u <= LANE for u in units) and input_dim <= LANE
-    Bp = -(-B // 8) * 8  # kernel pads rows to 8
-    if layout == "compact":
-        gate_lanes = sum(
-            (4 // gate_group_size(u)) * LANE for u in units
-        )
-    else:
-        gate_lanes = L * 4 * LANE
-    macs = 8 * Bp * T * LANE * gate_lanes
-    bytes_ = ((1 + 2 * L) + (3 + 4 * L)) * Bp * T * LANE * 4
-    # B > 512 runs ceil(B/256) sequential chunks, each its own fwd/bwd
-    # kernel pair -> the dependent-dot chain multiplies (boundary moved
-    # 496 -> 512 in round 5: whole-batch wins at 512 post no-copy bwd)
-    n_chunks = -(-B // 256) if B > 512 else 1
-    return TrainStepCost(
         macs_executed=macs,
-        macs_model=_model_train_macs(input_dim, units, B, T),
-        hbm_bytes=bytes_,
-        total_dots=8 * L * T * n_chunks,
-        vpu_gate_elems=Bp * T * gate_lanes,
+        hbm_bytes=nbytes,
     )

@@ -1,79 +1,33 @@
-"""Full-vs-reduced inference timing harness.
+"""Host-clock step timing: the first call (compilation included) is set-up,
+then the median of ``repeats`` calls, each ended by ``block_until_ready``.
 
-Reproduces the reference benchmark protocol (whole-run batch-1 inference,
-full vs reduced; reference code/svd_acceleration_v3.py:147-152) with honest
-device-time measurement (`svd_lstm_tpu.bench.devtime`) instead of
-dispatch-polluted wall clock, across implementations:
-
-* ``scan``   — XLA lax.scan path (models.*_apply)
-* ``pallas`` — fully-fused single-kernel streaming path (ops.pallas_lstm)
-* ``hybrid`` — XLA input-projection matmuls + Pallas recurrence kernels
+This is the end-to-end number a user feels; ``bench.devtime`` gives the
+device's own kernel time from a profiler trace.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Dict
+import statistics
+import time
+from typing import Callable, NamedTuple
 
 import jax
-import jax.numpy as jnp
-import numpy as np
-
-from svd_lstm_tpu.bench.devtime import device_time_ms
-from svd_lstm_tpu.models.lstm import StackedLSTMParams, stacked_lstm_apply
-from svd_lstm_tpu.models.reduced import ReducedModelParams, reduced_lstm_apply
-from svd_lstm_tpu.ops import pallas_lstm as pk
 
 
-@dataclasses.dataclass
-class TimingResult:
-    full_ms: float
-    reduced_ms: float
-    T: int
-
-    @property
-    def ratio(self) -> float:
-        """timing(reduced)/timing(full) — the reference's headline metric
-        (≈1.31–1.39 in the reference, plots/timing_plot.png)."""
-        return self.reduced_ms / self.full_ms
-
-    @property
-    def full_us_per_step(self) -> float:
-        return self.full_ms * 1e3 / self.T
-
-    @property
-    def reduced_us_per_step(self) -> float:
-        return self.reduced_ms * 1e3 / self.T
+class Timing(NamedTuple):
+    setup_s: float      # first call: tracing + compilation + one run
+    median_ms: float    # median of the timed calls
+    runs_ms: tuple      # every timed call
 
 
-def _forward_fns(impl: str):
-    if impl == "scan":
-        full = jax.jit(lambda p, x: stacked_lstm_apply(p, x[None], return_sequences=True)[0])
-        red = jax.jit(lambda p, x: reduced_lstm_apply(p, x[None], return_sequences=True)[0])
-    elif impl == "pallas":
-        full = jax.jit(pk.fused_dense_stack_pallas)
-        red = jax.jit(pk.fused_reduced_stack_pallas)
-    elif impl == "hybrid":
-        full = pk.dense_forward_hybrid
-        red = pk.reduced_forward_hybrid
-    else:
-        raise ValueError(impl)
-    return full, red
-
-
-def time_full_vs_reduced(
-    full_params: StackedLSTMParams,
-    reduced_params: ReducedModelParams,
-    x: np.ndarray,          # (T, d)
-    impl: str = "pallas",
-    repeats: int = 3,
-) -> TimingResult:
-    x = jnp.asarray(x, jnp.float32)
-    full_fn, red_fn = _forward_fns(impl)
-    full_ms = device_time_ms(full_fn, full_params, x, repeats=repeats)
-    red_ms = device_time_ms(red_fn, reduced_params, x, repeats=repeats)
-    return TimingResult(full_ms=full_ms, reduced_ms=red_ms, T=x.shape[0])
-
-
-def time_all_impls(full_params, reduced_params, x, impls=("scan", "pallas", "hybrid")) -> Dict[str, TimingResult]:
-    return {impl: time_full_vs_reduced(full_params, reduced_params, x, impl) for impl in impls}
+def time_call(fn: Callable, *args, repeats: int = 5) -> Timing:
+    """Time ``fn(*args)`` (``fn`` jitted) after one warm-up call."""
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn(*args))
+    setup = time.perf_counter() - t0
+    runs = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return Timing(setup, statistics.median(runs), tuple(runs))

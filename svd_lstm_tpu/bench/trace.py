@@ -2,25 +2,44 @@
 
 The reference's only profiling instrument was ``time.perf_counter`` around
 ``model.predict`` (code/svd_acceleration_v3.py:147-152) — one number per
-run, nothing about *where* the time went. This module is the TPU-native
+run, nothing about *where* the time went. This module is the profiler
 upgrade: it persists a real ``jax.profiler`` trace (viewable in
 TensorBoard's profile plugin or Perfetto) and extracts an aggregated
 per-op device-time table from it, so "the reduced model is slower" becomes
 "the reduced model spends 62% of its time in per-gate 15×16 matmuls".
 
-``bench.devtime.device_time_ms`` remains the measurement primitive (single
-total, temp-dir trace); this module is the diagnostic surface: named,
-persistent traces plus the breakdown.
+``bench.devtime`` remains the measurement primitive (the summed kernel
+time on the GPU device planes); this module is the diagnostic surface:
+named, persistent traces plus the breakdown.
 """
 
 from __future__ import annotations
 
+import glob
+import gzip
+import json
 import os
 from typing import Callable, NamedTuple, Sequence
 
 import jax
 
-from svd_lstm_tpu.bench.devtime import _device_exec_ms, _trace_dir_events
+from svd_lstm_tpu.bench import devtime
+
+
+def trace_events(trace_dir: str) -> list:
+    """Complete ('X') events of the newest ``.trace.json.gz`` under a
+    ``jax.profiler.trace`` directory (host and device rows alike)."""
+    paths = sorted(glob.glob(os.path.join(trace_dir, "plugins/profile/*/*.trace.json.gz")))
+    if not paths:
+        raise RuntimeError(f"no trace produced under {trace_dir}")
+    with gzip.open(paths[-1]) as f:
+        data = json.loads(f.read())
+    return [e for e in data.get("traceEvents", []) if e.get("ph") == "X"]
+
+
+def device_ms_of(trace_dir: str) -> float:
+    """The call's device time: ``devtime.kernel_ms`` of the trace."""
+    return devtime.kernel_ms(devtime.load_trace(trace_dir))
 
 
 class OpStat(NamedTuple):
@@ -82,15 +101,12 @@ def op_breakdown(trace_dir, top: int = 0) -> list[OpStat]:
     ``jax.profiler.trace`` output) or an already-parsed event list. Returns
     stats sorted by total duration, descending; ``top`` truncates (0 =
     all). Scaffolding events (profiler internals, process metadata, the
-    top-level jit_* wrapper) are dropped. Directories are parsed with
-    ``full=True`` — the devtime fast path for >64 MB traces keeps only the
-    jit_* wrappers, which is exactly what a breakdown must NOT reduce to,
-    so the diagnostic surface pays the full parse.
+    top-level jit_* wrapper) are dropped.
     """
     events = (
         trace_dir
         if not isinstance(trace_dir, (str, os.PathLike))
-        else _trace_dir_events(trace_dir, full=True)
+        else trace_events(trace_dir)
     )
     totals: dict[str, list[float]] = {}
     for e in events:
@@ -126,14 +142,13 @@ def summarize(fn: Callable, *args, out_dir: str, top: int = 15, warmup: int = 1)
     """Capture a trace of ``fn(*args)`` and summarize it in one call.
 
     Returns ``{"trace_dir", "device_ms", "ops": [OpStat...]}`` where
-    ``device_ms`` is the top-level executable total (same extraction as
-    ``devtime.device_time_ms``, single repeat) and ``ops`` the aggregated
-    breakdown.
+    ``device_ms`` is the summed kernel time on the GPU device planes
+    (:func:`device_ms_of`, which raises off the GPU) and ``ops`` the
+    aggregated breakdown.
     """
     capture_trace(fn, *args, out_dir=out_dir, warmup=warmup)
-    events = _trace_dir_events(out_dir, full=True)
     return {
         "trace_dir": out_dir,
-        "device_ms": _device_exec_ms(events),
-        "ops": op_breakdown(events, top=top),
+        "device_ms": device_ms_of(out_dir),
+        "ops": op_breakdown(trace_events(out_dir), top=top),
     }

@@ -52,35 +52,20 @@ class TrainConfig:
     nan_rollback: bool = True       # reference old_versions/train_full_model.py:133-136
     checkpoint_dir: str = "./model_saves"
     # Matmul passes inside the train step: "float32" (exact, default),
-    # "tensorfloat32" (3-pass bf16, ~1e-4 error), or "bfloat16" (fastest).
-    # TPUs emulate f32 matmuls at ~6x bf16 cost, so relaxing this buys real
-    # wall-time on compute-bound training (see BENCH_NOTES.md); validation
-    # metrics always run exact.
+    # "tensorfloat32" (TF32 on the GPU's tensor cores), or "bfloat16";
+    # validation metrics always run exact. Speed of each: PERF.md.
     matmul_precision: str = "float32"
-    # Run the training recurrences through the custom-VJP Pallas kernel
-    # engine (ops/pallas_train.py): narrow stacks (the reference's scale)
-    # use ONE fused whole-model kernel per direction, wide lane-aligned
-    # layers the per-layer VMEM-resident pair; dots are bf16-pass like
-    # matmul_precision="bfloat16". Applies to dense training AND the
-    # singular fine-tune (via the differentiable dense reconstruction in
-    # ops/singular_train.py); dropout fine-tunes keep the XLA scan. See
-    # BENCH_NOTES for the measured train-step speedups.
+    # Run the training recurrences through the custom-VJP recurrence kernel
+    # pair (ops/gpu_recurrence.py) for stacks whose layers are all at most
+    # 128 units wide; wider stacks keep the lax.scan. In-kernel dots are
+    # TF32. Applies to dense training, the singular fine-tune and the
+    # post-truncation recovery (via the differentiable dense views in
+    # ops/singular_train.py / ops/reduced_train.py) and the conv hybrids;
+    # dropout fine-tunes keep the XLA scan.
     recurrence_kernel: bool = False
-    # With recurrence_kernel on, run eligible narrow DENSE stacks through
-    # the compact-gate-layout train kernels (ops/pallas_train_compact.py:
-    # k gates per 128-lane block instead of one — at n=40 the P-layout
-    # burns 3.2x the MXU lanes on padding). Dense family only; stacks the
-    # compact layout cannot hold (any layer with gate_group_size < 2, or
-    # inputs wider than one lane block) silently keep the P-layout.
-    # "auto" (default) applies the measured v5e crossover — P-layout below
-    # B=128 (grid-latency-bound; measured 0.409 vs 0.657 ms at B=32),
-    # compact from B=128 up (compute-bound; 3.690 vs 4.298 ms at B=512) —
-    # BENCH_NOTES §round-5 compact A/B. `tune --train` measures the
-    # True/False pair per model and the cache overrides "auto".
-    compact_gates: bool | str = "auto"
     # Consult the autotune cache for this (model, window shape, device)
     # before training and, on a hit, train with the measured-best
-    # (matmul_precision, recurrence_kernel, compact_gates) triple written
+    # (matmul_precision, recurrence_kernel) pair written
     # by `tune --train` / `tuned_train_flags` — the training analog of
     # ``predict(impl="auto")`` consulting its cache. Read-only: a cache
     # miss trains with THIS config's flags, never measures. Explicit flags
@@ -96,7 +81,7 @@ class TrainConfig:
     # (the reference caps context at 200 steps purely by windowing,
     # code/svd_acceleration_v3.py:113 — this removes the memory half of
     # that cap). 0 = off. Ignored when recurrence_kernel takes the step
-    # (the Pallas engine has its own fixed residual plan).
+    # (the kernel pair has its own fixed residual plan).
     remat_chunk: int = 0
 
 
@@ -111,7 +96,7 @@ class FactorConfig:
     # arxiv 1710.09026). Composable with hoyer; 0 = off. NB: hoyer defaults
     # ON (0.01, the reference driver's setting) — pass hoyer=0.0 alongside
     # trace_norm for a pure trace-norm fine-tune. Measured guidance
-    # (BENCH_NOTES §Hoyer vs trace-norm): 3e-4 removes ~2.3× more weights
+    # (scripts/sparsifier_comparison.py): 3e-4 removes ~2.3× more weights
     # than hoyer=0.01 at small RMSE cost; ≥1e-3 damages accuracy.
     trace_norm: float = 0.0
     orthogonal: float = 0.0         # orthogonality penalty on U/V factors; >0 => train U/V

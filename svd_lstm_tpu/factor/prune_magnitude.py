@@ -8,14 +8,14 @@ code/svd_classes_v3.py:442-449; abandoned — "pruning was a bad idea",
 code/svd_acceleration_v2.py:111). In the singular model, the *prunable*
 weights (``get_prunable_weights``, reference code/svd_classes_v3.py:439-440)
 are the layer's ``kernel``/``recurrent_kernel`` — which hold the σ vectors.
-So the TPU-native analog is direct: per-tensor magnitude masks on every σ
+So the functional analog is direct: per-tensor magnitude masks on every σ
 vector, tightening along a polynomial schedule while fine-tuning.
 
 This is deliberately a thin functional wrapper: pruning here is a
 *reversible mask on σ*, so a pruned singular model flows through the normal
 σ-cutoff truncation (``make_reduced_model``) unchanged — a zeroed σ is
-simply below every cutoff. Structural compression that actually pays on TPU
-lives in ``factor/prune_units.py``.
+simply below every cutoff. Structural compression that shrinks the
+executed shapes lives in ``factor/prune_units.py``.
 """
 
 from __future__ import annotations

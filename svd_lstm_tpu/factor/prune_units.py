@@ -1,7 +1,7 @@
 """Structural unit pruning — compression beyond the reference.
 
-The reference compresses matrix *rank*; at TPU batch-1 scale that cannot
-cut the per-step latency floor (BENCH_NOTES). Removing whole hidden units
+The reference compresses matrix *rank*; at batch-1 the per-step chain is
+latency-bound, and rank alone cannot cut its floor. Removing whole hidden units
 does: every weight matrix physically shrinks, so the streamed bytes and
 the state width drop together. This composes with SVD truncation (prune
 units first, then factorize/truncate the smaller model).

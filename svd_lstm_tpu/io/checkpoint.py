@@ -121,7 +121,7 @@ def load_params(path: str) -> Any:
 def save_params_orbax(path: str, params: Any) -> None:
     """Save a parameter pytree as an Orbax checkpoint directory.
 
-    The TPU-native production format (SURVEY.md §5 names Orbax as the
+    The production format (SURVEY.md §5 names Orbax as the
     checkpoint/resume equivalent of the reference's Keras ``model.save`` —
     reference train_full_model_v4.py:128,159): sharded-array-aware, atomic
     (tmp dir renamed only on success), and async-friendly. The model

@@ -35,7 +35,7 @@ second factor ``C = V1^-1 V2`` (reference code/svd_classes_v3.py:656-660)
 carries the inverse's dynamic range (measured max|C| up to ~800 vs ~0.5
 for B at the reference scale), so a per-column int8 grid on the raw C is
 coarse enough to cost real task accuracy (~26% model-vs-model noise at
-4x40/r=25 where the dense artifact costs 0.7% — BENCH_NOTES §int8
+4x40/r=25 where the dense artifact costs 0.7% — scripts/int8_compensation_study.py
 artifact compensation). Before quantizing C, it is re-solved against the
 *already-quantized* B — ``C' = argmin ||deq(q(B)) C' - B C||_F`` (a
 data-free least-squares compensation in the spirit of sequential

@@ -91,7 +91,7 @@ class NativeModel:
         # one char per layer: 'd' dense; 'r' reduced with load-time
         # execution dispatch (a side whose rank can't pay for the exact
         # two-step is reconstructed to dense — the consumer never steps
-        # slower than dense, mirroring the TPU layout rule in
+        # slower than dense, mirroring the layout rule in
         # ops/layouts.py); 'R' reduced with the two-step FORCED (for
         # benchmarking the raw factored path)
         kinds: str,

@@ -5,7 +5,7 @@ Parity with the reference's convolutional experiment
 kernel_size=10, padding='causal', relu) feeding two stacked 15-unit LSTMs
 and a time-distributed Dense(1) head. The conv front-end is a single
 ``lax.conv_general_dilated`` over the whole sequence — exactly the kind of
-large static op XLA tiles well on the MXU.
+large static op that XLA runs well.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def conv_lstm_apply(
 # factorize / truncate / fine-tune / stream. The conv kernel itself is left
 # dense: at the reference's size (10×1×15) it is far below any rank the
 # two-step could pay for, and XLA already runs the whole-sequence causal
-# conv as one MXU-tiled op.
+# conv as one large op.
 
 
 class ConvSingularParams(NamedTuple):

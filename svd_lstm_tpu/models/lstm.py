@@ -1,4 +1,4 @@
-"""Dense stacked-LSTM regressor, TPU-first.
+"""Dense stacked-LSTM regressor.
 
 Weight layout is Keras-compatible so the reference's CSV fixtures load
 directly (reference code/load_preprocess.py:93-126 stores per-gate blocks of
@@ -16,9 +16,9 @@ and the cell math is the standard Keras LSTM
     c' = sigmoid(f) * c + sigmoid(i) * tanh(g)
     h' = sigmoid(o) * tanh(c')
 
-TPU-first structure: the input projection ``x @ W + b`` for a whole sequence
+Structure: the input projection ``x @ W + b`` for a whole sequence
 is hoisted out of the recurrence into ONE large matmul (T×d @ d×4n) that XLA
-tiles onto the MXU; only the inherently-sequential hidden-state product
+hands to cuBLAS; only the inherently-sequential hidden-state product
 ``h @ U`` stays inside ``lax.scan``. This is what lets the full-sequence
 forward pass run orders of magnitude faster than the reference's
 ``backend.rnn`` interpreter loop (code/svd_classes_v3.py:408-419).
@@ -59,48 +59,50 @@ class StackedLSTMParams(NamedTuple):
     head: DenseParams
 
 
-def gate_update(z: jax.Array, c: jax.Array) -> Tuple[jax.Array, jax.Array]:
-    """Fused carry/output update. z: (..., 4n); c: (..., n)."""
-    n = c.shape[-1]
-    zi, zf, zg, zo = z[..., :n], z[..., n : 2 * n], z[..., 2 * n : 3 * n], z[..., 3 * n :]
+def split_gates(z: jax.Array) -> Tuple[jax.Array, ...]:
+    """(..., 4n) pre-activations -> the four (..., n) blocks [i, f, c, o]."""
+    n = z.shape[-1] // 4
+    return tuple(z[..., g * n : (g + 1) * n] for g in range(4))
+
+
+def cell_update(zi, zf, zg, zo, c):
+    """The cell on per-gate pre-activations: returns ``(h', c')``. The one
+    source of the cell math, shared by the scans and the recurrence
+    kernels (ops/gpu_recurrence.py), which keep each gate in its own
+    block because the Triton route cannot slice a value in registers."""
     i = jax.nn.sigmoid(zi)
     f = jax.nn.sigmoid(zf)
     g = jnp.tanh(zg)
     o = jax.nn.sigmoid(zo)
     c_new = f * c + i * g
-    h_new = o * jnp.tanh(c_new)
-    return h_new, c_new
+    return o * jnp.tanh(c_new), c_new
 
 
-def gate_update_bwd(
-    z: jax.Array, c_prev: jax.Array, c_t: jax.Array, dh: jax.Array, dc: jax.Array
-) -> Tuple[jax.Array, jax.Array]:
-    """Reverse of :func:`gate_update` at one step, from the recomputed
-    pre-activations ``z`` and the saved cell states. ``dh`` must already
-    contain every contribution into h_t (output cotangent + recurrent
-    carry + the layer above). Returns ``(dz, dc_prev)``.
+def gate_update(z: jax.Array, c: jax.Array) -> Tuple[jax.Array, jax.Array]:
+    """Fused carry/output update. z: (..., 4n); c: (..., n)."""
+    return cell_update(*split_gates(z), c)
 
-    ONE source of truth for the gradient formula: both Pallas backward
-    kernels (ops/pallas_train.py, ops/pallas_train_fused.py) call this, so
-    a fix to the cell gradient cannot miss a kernel. The hand-unrolled
-    copy in ops/pallas_train._trainable_bwd is kept as the readable
-    reference; jax autodiff of the scan is the independent oracle in
-    tests/test_pallas_train.py."""
-    n = c_prev.shape[-1]
-    i = jax.nn.sigmoid(z[..., :n])
-    f = jax.nn.sigmoid(z[..., n : 2 * n])
-    g = jnp.tanh(z[..., 2 * n : 3 * n])
-    o = jax.nn.sigmoid(z[..., 3 * n :])
+
+def cell_update_bwd(zi, zf, zg, zo, c_prev, c_t, dh, dc):
+    """Reverse of :func:`cell_update` at one step, from the recomputed
+    pre-activations and the saved cell states. ``dh`` must already hold
+    every contribution into h_t (output cotangent + recurrent carry).
+    Returns ``((dzi, dzf, dzg, dzo), dc_prev)``.
+
+    The one source of the cell gradient: the backward kernel
+    (ops/gpu_recurrence.py) calls it; jax autodiff of the scan is the
+    independent oracle in tests/test_pallas_train.py."""
+    i = jax.nn.sigmoid(zi)
+    f = jax.nn.sigmoid(zf)
+    g = jnp.tanh(zg)
+    o = jax.nn.sigmoid(zo)
     tc = jnp.tanh(c_t)
     dc_tot = dc + dh * o * (1.0 - tc * tc)
-    dz = jnp.concatenate(
-        [
-            dc_tot * g * i * (1.0 - i),
-            dc_tot * c_prev * f * (1.0 - f),
-            dc_tot * i * (1.0 - g * g),
-            dh * tc * o * (1.0 - o),
-        ],
-        axis=-1,
+    dz = (
+        dc_tot * g * i * (1.0 - i),
+        dc_tot * c_prev * f * (1.0 - f),
+        dc_tot * i * (1.0 - g * g),
+        dh * tc * o * (1.0 - o),
     )
     return dz, dc_tot * f
 
@@ -195,7 +197,7 @@ def lstm_layer_apply(
 
     def make_xp(x_tbd):
         """Input projection for (T', B, d) time-major input -> (T', B, 4n).
-        One big MXU matmul (the hoisted-projection design); under remat it
+        One large matmul (the hoisted-projection design); under remat it
         runs per chunk inside the checkpointed body so the projection is
         recomputed, not saved."""
         if use_dp:

@@ -106,9 +106,8 @@ def reduced_projection(p: ReducedLayerParams, x, which: str) -> jax.Array:
 
     Executed in the folded form ``(x @ B) @ [I|C]`` (identical values, no
     concatenation); split-mode gates are rank-padded with zero columns/rows
-    (exact) and stacked so the whole 4-gate product is two batched einsums —
-    the concat-chain formulation was measured 2-3× slower at batch 256 on
-    v5e from intermediate materialization alone.
+    (exact) and stacked so the whole 4-gate product is two batched einsums,
+    with no per-gate intermediates to materialize.
     """
     from svd_lstm_tpu.utils.linalg import fold_IC
 

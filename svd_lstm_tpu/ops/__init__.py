@@ -1,9 +1,8 @@
-"""TPU execution layer: Pallas kernels + kernel-layout transforms.
+"""Execution layer: the recurrence kernel pair and layout transforms.
 
-* pallas_lstm — batch-1 latency kernels (fused whole-stack, hybrid,
-  folded two-step recurrences) with the opt-in fast-mode dot relaxation
-* pallas_batched — batched-throughput recurrence with VMEM-resident U
-* pallas_train / pallas_train_fused — custom-VJP trainable kernel pairs
+* gpu_recurrence — the Pallas (Triton route) forward/backward recurrence
+  kernels for narrow stacks, their custom-VJP training apply and the
+  batch-1 / batched inference forward
 * singular_train — the SVD fine-tune through the same kernels via a
   differentiable dense reconstruction (exact chain-rule factor gradients)
 * reduced_train — the post-truncation recovery fine-tune through the same
@@ -19,30 +18,15 @@ from svd_lstm_tpu.ops.conv_train import (
     conv_reduced_apply_fast_train,
     conv_singular_apply_fast_train,
 )
-
+from svd_lstm_tpu.ops.gpu_recurrence import (
+    lstm_recurrence,
+    stack_forward,
+    stacked_lstm_apply_fast_train,
+)
 from svd_lstm_tpu.ops.layouts import (
     reconstruct_dense_model,
     reduced_forward_dense_recurrent,
-    reduced_forward_fused,
-    singular_forward_fused,
 )
-from svd_lstm_tpu.ops.pallas_batched import (
-    batched_forward_fast,
-    batched_lstm_recurrence_pallas,
-)
-from svd_lstm_tpu.ops.pallas_lstm import (
-    dense_forward_hybrid,
-    fused_dense_stack_pallas,
-    fused_reduced_stack_pallas,
-    lstm_recurrence_pallas,
-    reduced_forward_hybrid,
-    reduced_recurrence_pallas,
-)
-from svd_lstm_tpu.ops.pallas_train import (
-    lstm_recurrence_trainable,
-    stacked_lstm_apply_fast_train,
-)
-from svd_lstm_tpu.ops.pallas_train_fused import fused_narrow_train_apply
 from svd_lstm_tpu.ops.reduced_train import (
     reduced_dense_view,
     reduced_lstm_apply_fast_train,

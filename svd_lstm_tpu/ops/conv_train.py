@@ -4,7 +4,7 @@ The reference trains its conv hybrid end-to-end through Keras
 (reference code/old_versions/toy-convolution.py:70-76: Conv1D(15, 10,
 causal, relu) -> 2x LSTM(15) -> Dense(1)). Rounds 1-3 trained the
 hybrids here on the exact XLA scan only — the ONE family outside the
-fused Pallas training engine. This module closes that gap.
+kernel training engine. This module closes that gap.
 
 The structure that makes it trivial is the same hoisting the inference
 path uses (api.predict peels the conv first): the causal conv is a
@@ -12,8 +12,8 @@ single whole-sequence ``lax.conv_general_dilated`` with a standard,
 XLA-differentiated VJP — there is nothing recurrent about it — so the
 hybrid's training step is
 
-    h = relu(causal_conv1d(conv, x))        # one MXU-tiled op + its VJP
-    y = <stack fast-train apply>(inner, h)  # the existing fused kernels
+    h = relu(causal_conv1d(conv, x))        # one whole-sequence op + its VJP
+    y = <stack fast-train apply>(inner, h)  # the recurrence kernel pair
 
 and gradients flow to the conv weights through the kernel's ``dx``
 cotangent (the custom-VJP recurrence kernels return dxp, which the
@@ -22,22 +22,11 @@ hoisted input projection's autodiff carries back through the conv).
 Per-family inner routing (all shared with the pure families — ONE
 kernel engine):
 
-* ``ConvLSTMParams``      -> ``ops.pallas_train.stacked_lstm_apply_fast_train``
+* ``ConvLSTMParams``      -> ``ops.gpu_recurrence.stacked_lstm_apply_fast_train``
 * ``ConvSingularParams``  -> dense view of the factors
   (``ops.singular_train.singular_dense_view``) through the same kernels
 * ``ConvReducedParams``   -> bilinear dense view
   (``ops.reduced_train.reduced_dense_view``) through the same kernels
-
-All three route through ``ops.singular_train.chunked_fast_train`` so the
-measured Mosaic batch cliffs apply uniformly: the conv output is a
-*computed* (differentiated-producer-fed) input to the kernel program,
-the same program family as the reconstruction-fed fine-tunes that crash
-the remote compiler (B >= 768 post-round-5) — so batches past
-_MAX_WHOLE_BATCH run the kernel
-over balanced ~256-row chunks exactly like the singular/reduced paths
-(ops/pallas_train.py:_MAX_WHOLE_BATCH). On-chip validation:
-scripts/probe_conv_train_kernel.py (compiled == scan, B across the
-chunk boundaries).
 
 Dropout fine-tunes keep the XLA scan, exactly like the pure families
 (the kernels carry no mask support; train.finetune.dropout_apply_fn
@@ -55,6 +44,7 @@ from svd_lstm_tpu.models.conv import (
     causal_conv1d,
 )
 from svd_lstm_tpu.models.lstm import StackedLSTMParams
+from svd_lstm_tpu.ops.gpu_recurrence import stacked_lstm_apply_fast_train
 
 
 def _conv_front(conv, x_seq: jax.Array) -> jax.Array:
@@ -68,45 +58,33 @@ def conv_lstm_apply_fast_train(
     params: ConvLSTMParams,
     x_seq: jax.Array,
     return_sequences: bool = True,
-    interpret: bool = False,
 ) -> jax.Array:
     """Drop-in ``apply_fn`` for ``train.loop.fit`` training the dense conv
-    hybrid through the fused Pallas kernels (the reference's conv
+    hybrid through the recurrence kernels (the reference's conv
     experiment, code/old_versions/toy-convolution.py:70-76, at kernel
     speed). Gradient parity vs autodiff of ``conv_lstm_apply`` is
     asserted in tests/test_conv_train_kernel.py."""
-    from svd_lstm_tpu.ops.singular_train import chunked_fast_train
-
     h = _conv_front(params.conv, x_seq)
     inner = StackedLSTMParams(layers=params.layers, head=params.head)
-    return chunked_fast_train(
-        inner, h, return_sequences=return_sequences, interpret=interpret
-    )
+    return stacked_lstm_apply_fast_train(inner, h, return_sequences)
 
 
 def conv_singular_apply_fast_train(
     params: ConvSingularParams,
     x_seq: jax.Array,
     return_sequences: bool = True,
-    interpret: bool = False,
 ) -> jax.Array:
     """Kernel-path fine-tune forward for the factorized conv hybrid: conv
     front end + the singular stack's differentiable dense reconstruction
-    through the fused kernels (ops/singular_train.py). Replaces the
-    hybrid's fine-tune-stage compute (the reference fine-tunes factorized
-    models only at the pure-LSTM scale, code/svd_acceleration_v3.py:
-    119-128 — the hybrid analog is beyond-reference)."""
-    from svd_lstm_tpu.ops.singular_train import (
-        chunked_fast_train,
-        singular_dense_view,
-    )
+    through the kernels (ops/singular_train.py). Replaces the hybrid's
+    fine-tune-stage compute (the reference fine-tunes factorized models
+    only at the pure-LSTM scale, code/svd_acceleration_v3.py:119-128 — the
+    hybrid analog is beyond-reference)."""
+    from svd_lstm_tpu.ops.singular_train import singular_dense_view
 
     h = _conv_front(params.conv, x_seq)
-    return chunked_fast_train(
-        singular_dense_view(params.inner),
-        h,
-        return_sequences=return_sequences,
-        interpret=interpret,
+    return stacked_lstm_apply_fast_train(
+        singular_dense_view(params.inner), h, return_sequences
     )
 
 
@@ -114,18 +92,13 @@ def conv_reduced_apply_fast_train(
     params: ConvReducedParams,
     x_seq: jax.Array,
     return_sequences: bool = True,
-    interpret: bool = False,
 ) -> jax.Array:
     """Kernel-path recovery fine-tune forward for the truncated conv
     hybrid: conv front end + the reduced stack's bilinear dense view
-    through the fused kernels (ops/reduced_train.py)."""
+    through the kernels (ops/reduced_train.py)."""
     from svd_lstm_tpu.ops.reduced_train import reduced_dense_view
-    from svd_lstm_tpu.ops.singular_train import chunked_fast_train
 
     h = _conv_front(params.conv, x_seq)
-    return chunked_fast_train(
-        reduced_dense_view(params.inner),
-        h,
-        return_sequences=return_sequences,
-        interpret=interpret,
+    return stacked_lstm_apply_fast_train(
+        reduced_dense_view(params.inner), h, return_sequences
     )

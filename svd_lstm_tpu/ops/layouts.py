@@ -1,24 +1,18 @@
 """Kernel-layout transformations for reduced models.
 
 A reduced model's *parameterization* (the exact two-step (B, C) pairs —
-reference code/svd_classes_v3.py:604-676) is independent of the *kernel
-layout* it executes in. On TPU the best batch-1 layout differs from the
-storage layout:
+reference code/svd_classes_v3.py:604-676) is independent of the *layout*
+it executes in:
 
-* **x-side (input projections)**: stays factored — these run as big
-  (T × d) @ (d × r) @ (r × ·) MXU matmuls over the whole sequence, where
-  the rank reduction is a real FLOP/bandwidth win.
-* **h-side (recurrence)**: executed *dense-reconstructed*: the per-step
-  chain is latency-bound (~300 ns/layer-step on v5e regardless of n ≤ 128),
-  so two dependent matvecs always lose to one. ``U_rec = B @ [I|C]`` is
-  algebraically exact (same outputs bit-for-bit up to one matmul rounding),
-  costs one dot per step — identical latency to the full model, in place of
-  the reference's 1.31× slowdown.
+* **x-side (input projections)**: stays factored — these run as large
+  (T × d) @ (d × r) @ (r × ·) matmuls over the whole sequence, where the
+  rank reduction is a real FLOP/bandwidth saving.
+* **h-side (recurrence)**: can run *dense-reconstructed*: ``U_rec = B @
+  [I|C]`` is algebraically exact (same outputs up to one matmul rounding)
+  and costs one dependent product per step instead of two.
 
-This is measured, not assumed: see BENCH notes — split two-step recurrence
-was 2.4–5.2× and merged two-step 1.31× the dense step on v5e; the
-reconstruction gives 1.00× by construction while keeping the compressed
-storage (r·(m+n−r) weights) and the factored x-side savings.
+Which layout is faster is a measurement per width (PERF.md); this module
+only provides the exact transformations.
 """
 
 from __future__ import annotations
@@ -28,7 +22,7 @@ import jax.numpy as jnp
 
 from svd_lstm_tpu.models.lstm import gate_update
 from svd_lstm_tpu.models.reduced import ReducedModelParams, reduced_projection
-from svd_lstm_tpu.ops.pallas_lstm import fold_IC, lstm_recurrence_pallas
+from svd_lstm_tpu.utils.linalg import fold_IC
 
 
 def reconstruct_recurrent_dense(layer, precision=None) -> jax.Array:
@@ -45,14 +39,12 @@ def reconstruct_recurrent_dense(layer, precision=None) -> jax.Array:
 def reconstruct_dense_model(params: ReducedModelParams, precision=None):
     """Exact dense StackedLSTMParams from a reduced model (both sides
     reconstructed). The compressed parameterization remains the stored
-    form; this is purely an execution layout: at the reference's scale the
-    whole forward is latency/bandwidth-bound and dense kernels are the
-    fastest exact evaluation of the truncated model.
+    form; this is purely an execution layout.
 
     ``precision`` pins the reconstruction dots (the differentiable training
     view passes HIGHEST: the product IS the model's weight matrix, so an
-    ambient bf16 scope must not perturb it); None uses the package default
-    (f32 matmul precision, set at import)."""
+    ambient relaxed scope must not perturb it); None uses the package
+    default (f32 matmul precision, set at import)."""
     from svd_lstm_tpu.models.lstm import LSTMLayerParams, StackedLSTMParams
 
     layers = []
@@ -73,57 +65,13 @@ def reconstruct_dense_model(params: ReducedModelParams, precision=None):
     return StackedLSTMParams(layers=tuple(layers), head=params.head)
 
 
-def singular_forward_fused(
-    smodel, x: jax.Array, interpret: bool = False, dot_precision=None
-) -> jax.Array:
-    """Fastest batch-1 evaluation of a (full-rank) singular model: exact
-    dense collapse W = (U·Σ)·Vᵀ through the fused kernel. x: (T, d)."""
-    from svd_lstm_tpu.factor.svd import singular_to_dense
-    from svd_lstm_tpu.ops.pallas_lstm import fused_dense_stack_pallas
-
-    return fused_dense_stack_pallas(
-        singular_to_dense(smodel), x, interpret=interpret, dot_precision=dot_precision
-    )
-
-
-def reduced_forward_fused(
-    params: ReducedModelParams,
-    x: jax.Array,
-    interpret: bool = False,
-    dot_precision=None,
-) -> jax.Array:
-    """Fastest batch-1 whole-run evaluation of a reduced model: dense
-    reconstruction (exact) through the fused compact-weight Pallas kernel.
-    x: (T, d) -> (T, head_dim)."""
-    from svd_lstm_tpu.ops.pallas_lstm import fused_dense_stack_pallas
-
-    return fused_dense_stack_pallas(
-        reconstruct_dense_model(params),
-        x,
-        interpret=interpret,
-        dot_precision=dot_precision,
-    )
-
-
 def reduced_forward_dense_recurrent(
     params: ReducedModelParams,
     x_seq: jax.Array,
     return_sequences: bool = True,
-    use_pallas: bool = False,
-    interpret: bool = False,
 ) -> jax.Array:
-    """Reduced-model forward in the TPU batch-1 layout: factored x-side,
-    dense-reconstructed h-side. x_seq: (B, T, d) for the scan path, or
-    (T, d) when ``use_pallas`` (batch-1 kernel path)."""
-    if use_pallas:
-        h = x_seq  # (T, d)
-        for layer in params.layers:
-            xp = reduced_projection(layer, h, "w") + layer.b
-            U = reconstruct_recurrent_dense(layer)
-            h = lstm_recurrence_pallas(xp, U, interpret=interpret)
-        out = h @ params.head.w + params.head.b
-        return out if return_sequences else out[-1]
-
+    """Reduced-model forward with a factored x-side and a
+    dense-reconstructed h-side ``lax.scan``. x_seq: (B, T, d)."""
     B, T, _ = x_seq.shape
     h = x_seq
     for layer in params.layers:

@@ -5,8 +5,8 @@ builds an inference-only cell (every weight ``trainable=False``, reference
 code/svd_classes_v3.py:240-368) and accepts whatever accuracy the σ-cutoff
 left behind. This module is the beyond-reference recovery stage: the
 two-step factors are ordinary parameters here, so the truncated model can
-be fine-tuned directly — and routed through the SAME fused Pallas training
-kernels as the dense trainer (ops/pallas_train.py), exactly like the
+be fine-tuned directly — and routed through the SAME recurrence kernel
+pair as the dense trainer (ops/gpu_recurrence.py), exactly like the
 singular fine-tune (ops/singular_train.py).
 
 The identity that makes the chain rule exact: with ``B = (U·Σ)·V₁`` and
@@ -26,7 +26,7 @@ Reconstruction dots run at HIGHEST precision for the same reason the
 singular view's do: their product IS the model's weight matrix.
 
 Training B and C directly preserves the two-step *parameterization* (not
-just its values), so every deployment surface — folded Pallas kernels,
+just its values), so every deployment surface — the inference paths,
 CSV/int8 export, the native consumer — consumes the recovered model
 unchanged.
 """
@@ -37,6 +37,7 @@ import jax
 
 from svd_lstm_tpu.models.lstm import StackedLSTMParams
 from svd_lstm_tpu.models.reduced import ReducedModelParams
+from svd_lstm_tpu.ops.gpu_recurrence import stacked_lstm_apply_fast_train
 
 HIGHEST = jax.lax.Precision.HIGHEST
 
@@ -65,25 +66,15 @@ def reduced_lstm_apply_fast_train(
     rparams: ReducedModelParams,
     x_seq: jax.Array,
     return_sequences: bool = True,
-    interpret: bool = False,
 ) -> jax.Array:
     """Drop-in ``apply_fn`` for ``train.loop.fit`` running the
-    post-truncation recovery fine-tune through the fused dense training
-    kernels (the stage the reference cannot run at all: its reduced cell
-    is frozen, reference code/svd_classes_v3.py:249-315).
+    post-truncation recovery fine-tune through the dense training kernels
+    (the stage the reference cannot run at all: its reduced cell is
+    frozen, reference code/svd_classes_v3.py:249-315).
 
     Gradient parity with autodiff of ``reduced_lstm_apply`` is asserted in
     tests/test_reduced_train.py.
     """
-    # same measured remote-compiler cliff as the singular path (B >= 512
-    # crashes, 256-row chunks are the per-sample optimum —
-    # ops/singular_train.py module docstring), so large batches run the
-    # kernel over independent chunks instead of falling back to the scan.
-    from svd_lstm_tpu.ops.singular_train import chunked_fast_train
-
-    return chunked_fast_train(
-        reduced_dense_view(rparams),
-        x_seq,
-        return_sequences=return_sequences,
-        interpret=interpret,
+    return stacked_lstm_apply_fast_train(
+        reduced_dense_view(rparams), x_seq, return_sequences
     )

@@ -4,7 +4,6 @@ from svd_lstm_tpu.parallel.pipeline import make_pipeline_inference
 from svd_lstm_tpu.parallel.train import (
     make_sharded_train_step,
     make_batched_inference,
-    make_batched_fast_inference,
     make_dp_train_step,
     make_dp_finetune_step,
     shard_params_for_mesh,

@@ -38,6 +38,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from svd_lstm_tpu.config import TrainConfig
 from svd_lstm_tpu.data.batcher import split_train_random
 from svd_lstm_tpu.models.lstm import stacked_lstm_apply
+from svd_lstm_tpu.parallel.train import _local_value_and_grad
 from svd_lstm_tpu.train.loop import (
     TrainResult,
     drive_epochs,
@@ -74,8 +75,8 @@ def fit_dp(
     divisible by the device count.
 
     ``cfg.recurrence_kernel`` is honored exactly like ``fit``: the dense
-    scan and the singular fine-tune swap to the Pallas training-kernel
-    engine (check_vma then comes off — the check cannot see through a
+    scan and the singular fine-tune swap to the recurrence kernel pair
+    (check_vma then comes off — the check cannot see through a
     ``pallas_call``).
 
     ``dropout_rng`` enables per-batch dropout keys (same schedule as
@@ -129,7 +130,9 @@ def fit_dp(
                 # independent masks per shard: fold in the dp index
                 rng = jax.random.fold_in(xy[2], jax.lax.axis_index("dp"))
             with jax.default_matmul_precision(cfg.matmul_precision):
-                loss, grads = jax.value_and_grad(base_loss)(p, x, y, rng)
+                loss, grads = _local_value_and_grad(
+                    lambda q: base_loss(q, x, y, rng), p, "dp"
+                )
             loss = jax.lax.pmean(loss, "dp")
             grads = jax.lax.pmean(grads, "dp")
             updates, s = optimizer.update(grads, s, p)

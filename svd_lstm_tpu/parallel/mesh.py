@@ -1,10 +1,12 @@
 """Device-mesh helpers.
 
 The reference has no distributed execution of any kind (SURVEY.md §2: the
-custom Keras cells are explicitly CPU-bound single-process). The TPU-native
-equivalent: a ``jax.sharding.Mesh`` with a data axis (``dp``) and a model
-axis (``tp``), used by ``svd_lstm_tpu.parallel.train`` for batch-parallel
-windowed-BPTT with gate-column tensor parallelism over ICI.
+custom Keras cells are explicitly CPU-bound single-process). Here: a
+``jax.sharding.Mesh`` with a data axis (``dp``) and a model axis (``tp``),
+used by ``svd_lstm_tpu.parallel.train`` for batch-parallel windowed-BPTT
+with gate-column tensor parallelism. The devices are reshaped in order:
+every card of a host reaches every other at the same NVLink rate, so the
+mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -12,13 +12,13 @@ per-layer recurrences that are sequential in *time* but independent across
 * stage ``s`` of the ``pp`` axis owns layers ``[s·L/S, (s+1)·L/S)`` and
   their recurrent state, which never leaves the device;
 * at wavefront tick ``k``, stage ``s`` runs its layers over chunk
-  ``k − s`` and hands the resulting hidden chunk to stage ``s+1`` over ICI
-  via ``lax.ppermute`` — the classic GPipe-style schedule, except no
+  ``k − s`` and hands the resulting hidden chunk to stage ``s+1`` over
+  the device interconnect via ``lax.ppermute`` — the classic GPipe-style schedule, except no
   microbatching is needed: the recurrent state makes chunk ``c`` depend on
   chunk ``c−1`` *within* a stage, which the wavefront satisfies for free.
 
 Steady-state efficiency is ``C / (C + S − 1)`` for ``C = T/ct`` chunks
-(> 92% at the headline T=6656 with ct=512, S=4), and the per-tick ICI
+(> 92% at the headline T=6656 with ct=512, S=4), and the per-tick
 transfer — one (B, ct, n) block, amortized over ``ct·L/S`` dependent
 recurrence steps — rides a single ppermute hop. The reference, a
 single-process Keras interpreter, has no analog (SURVEY.md §2: "no
@@ -34,15 +34,14 @@ Both model families the benchmark compares run under the same wavefront:
   (split), rank-padded with zero columns/rows so every layer stacks to
   uniform (n, R)/(R, 4n) blocks — all exact, the same identities
   ``models/reduced.reduced_projection`` uses. For narrow models where the
-  two-step does not pay on TPU (BENCH_NOTES §native), reconstruct first:
-  ``make_pipeline_inference``'s wavefront is family-agnostic, so
+  two-step does not pay, reconstruct first: ``make_pipeline_inference``'s
+  wavefront is family-agnostic, so
   ``ops.layouts.reconstruct_dense_model(reduced)`` feeds the dense path.
 
 Exactness of the input pad: layer 1's (d, 4n) kernel (or (d, R) first
 factor) is zero-row-padded to width n and the input zero-padded to width
 n so every stage runs the same stacked shapes — extra columns of x meet
-zero rows of the kernel, contributing exactly nothing (the same trick the
-fused training kernels use, ops/pallas_train.py).
+zero rows of the kernel, contributing exactly nothing.
 
 Training deliberately does NOT go through pp: the training workload is
 windowed BPTT over thousands of independent windows (SURVEY.md §5), where

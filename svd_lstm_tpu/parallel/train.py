@@ -1,7 +1,7 @@
 """Sharded training step: data parallel × tensor parallel via shard_map.
 
-Parallelism design (scaling-book style — pick a mesh, shard, let collectives
-ride ICI):
+Parallelism design (scaling-book style — pick a mesh, shard, let XLA hand
+the collectives to NCCL):
 
 * **dp** — the batch of training windows is sharded across the ``dp`` axis;
   each device computes grads on its shard, then ``pmean`` over ``dp``.
@@ -112,6 +112,16 @@ def _forward_local(params: StackedLSTMParams, x, tp_axis: str | None):
 # sharded train step
 # ---------------------------------------------------------------------------
 
+def _local_value_and_grad(loss_fn, params, axes):
+    """``value_and_grad`` of this shard's loss alone. Parameters replicated
+    over ``axes`` are typed invariant there, and the gradient of a varying
+    loss with respect to an invariant input is summed over the axes by
+    autodiff; differentiating at a varying copy keeps the gradient local,
+    so the caller's ``pmean`` is the one reduction."""
+    local = jax.tree.map(lambda a: jax.lax.pcast(a, axes, to="varying"), params)
+    return jax.value_and_grad(loss_fn)(local)
+
+
 def shard_params_for_mesh(params: StackedLSTMParams, mesh: Mesh) -> StackedLSTMParams:
     """Build the host-side tp-sharded parameter pytree: per-layer W/U/b carry
     their gate-column slices laid out contiguously along the column axis so
@@ -190,19 +200,16 @@ def make_sharded_train_step(
         # params: tp-local slices; x: (B/dp, T, d); y: (B/dp,)
         def loss_fn(p):
             pred = _forward_local(p, x, tp_axis)[..., 0]
-            return jnp.mean(jnp.square(pred - y))
+            # every tp device holds the same loss (pred comes from the
+            # gathered h and the replicated head); autodiff sums the
+            # cotangents of all tp copies, so each copy carries 1/tp
+            return jnp.mean(jnp.square(pred - y)) / tp
 
-        loss, grads = jax.value_and_grad(loss_fn)(params)
+        loss, grads = _local_value_and_grad(loss_fn, params, "dp")
         loss = jax.lax.pmean(loss, "dp")
         grads = jax.lax.pmean(grads, "dp")
         if tp_axis is not None:
-            # head (replicated over tp) accumulates grads from every tp shard
-            head_g = jax.lax.pmean(grads.head, tp_axis)
-            grads = grads._replace(head=head_g)
-            # the loss value is already tp-invariant (pred is computed from
-            # the gathered h and the replicated head), but the vma system
-            # can't see that — reduce so out_specs P() checks statically
-            loss = jax.lax.pmean(loss, tp_axis)
+            loss = jax.lax.psum(loss, tp_axis)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
         return params, opt_state, loss
@@ -234,7 +241,7 @@ def make_sharded_train_step(
             in_specs=(pspec, ospec, P("dp", None, None), P("dp")),
             out_specs=(pspec, ospec, P()),
             # vma checking ON: the one static guard against a mis-sharded
-            # collective (VERDICT r2 weak #6) — this step is pure XLA, so
+            # collective — this step is pure XLA, so
             # the check is meaningful (unlike the pallas_call shard_map)
             check_vma=True,
         )(params, opt_state, x, y)
@@ -257,7 +264,7 @@ def make_dp_train_step(
     axis, gradients ``pmean``-reduced. This is how the compressed models
     (singular fine-tune, reduced) scale — their factor pytrees have no
     natural gate-column tp layout, and at their sizes dp is the right axis
-    anyway (VERDICT.md next-round #8).
+    anyway.
 
     ``loss_extra(params) -> scalar`` carries the fine-tune regularizers
     (Hoyer/orthogonality), matching ``train.loop.fit``'s hook.
@@ -274,7 +281,7 @@ def make_dp_train_step(
                 loss = loss + loss_extra(p)
             return loss
 
-        loss, grads = jax.value_and_grad(loss_fn)(params)
+        loss, grads = _local_value_and_grad(loss_fn, params, axes)
         loss = jax.lax.pmean(loss, axes)
         grads = jax.lax.pmean(grads, axes)
         updates, opt_state = optimizer.update(grads, opt_state, params)
@@ -290,7 +297,7 @@ def make_dp_train_step(
             mesh=mesh,
             in_specs=(pspec, ospec, P(axes, None, None), P(axes)),
             out_specs=(pspec, ospec, P()),
-            # pure-XLA step: vma checking on (VERDICT r2 weak #6)
+            # pure-XLA step: vma checking on
             check_vma=True,
         )(params, opt_state, x, y)
 
@@ -341,7 +348,8 @@ def make_dp_finetune_step(
 def make_batched_inference(mesh: Mesh, apply_fn) -> Callable:
     """Shard a batch of independent sequences over every mesh device
     (recurrence stays sequential in time; parallelism is across sequences —
-    SURVEY.md §5 'long-context' row)."""
+    SURVEY.md §5 'long-context' row). GSPMD partitions any pure-XLA
+    ``apply_fn``, including ``predict(..., precision="fast")``."""
     n_dev = mesh.devices.size
     flat_mesh = Mesh(mesh.devices.reshape(-1), ("b",))
 
@@ -350,36 +358,5 @@ def make_batched_inference(mesh: Mesh, apply_fn) -> Callable:
         X = jax.device_put(X, NamedSharding(flat_mesh, P("b", None, None)))
         params_r = jax.device_put(params, NamedSharding(flat_mesh, P()))
         return apply_fn(params_r, X, return_sequences=True)
-
-    return run
-
-
-def make_batched_fast_inference(mesh: Mesh, interpret: bool = False) -> Callable:
-    """dp-sharded *fast-precision* batched inference: every device runs the
-    VMEM-resident Pallas recurrence (ops/pallas_batched.py, the 7.4×
-    throughput path) on its local batch shard of independent sequences.
-
-    GSPMD cannot auto-partition a ``pallas_call``, so unlike
-    :func:`make_batched_inference` this uses an explicit ``shard_map`` over
-    a flat batch axis — no collectives are needed (sequences are
-    independent), the kernel just runs per shard."""
-    from svd_lstm_tpu.ops.pallas_batched import batched_forward_fast
-
-    flat_mesh = Mesh(mesh.devices.reshape(-1), ("b",))
-
-    @jax.jit
-    def run(params, X):  # X: (B, T, d) f32, B % n_dev == 0
-        X = jax.device_put(X, NamedSharding(flat_mesh, P("b", None, None)))
-        params_r = jax.device_put(params, NamedSharding(flat_mesh, P()))
-        return shard_map(
-            lambda p, xb: batched_forward_fast(p, xb, interpret=interpret),
-            mesh=flat_mesh,
-            in_specs=(P(), P("b", None, None)),
-            out_specs=P("b", None, None),
-            # pallas_call's out_shape carries no varying-mesh-axes info, so
-            # the vma check cannot see through it; the kernel is purely
-            # local (no collectives), making the check vacuous here
-            check_vma=False,
-        )(params_r, X)
 
     return run

@@ -6,9 +6,6 @@ import jax
 import jax.numpy as jnp
 
 
-LANE = 128  # TPU vector lane width: the unit every kernel layout pads to
-
-
 def ceil_to(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -41,43 +38,11 @@ def pad_cols(M: jax.Array, cols: int) -> jax.Array:
 
 
 def pad_gate_cols(M: jax.Array, n: int, npg: int) -> jax.Array:
-    """(rows, 4n) -> (rows, 4*npg), gate g at lanes [g*npg, g*npg+n)."""
+    """(rows, 4n) -> (rows, 4*npg), gate g at columns [g*npg, g*npg+n)."""
     rows = M.shape[0]
     out = jnp.zeros((rows, 4 * npg), M.dtype)
     for g in range(4):
         out = out.at[:, g * npg : g * npg + n].set(M[:, g * n : (g + 1) * n])
-    return out
-
-
-def gate_group_size(n: int, lane: int = 128) -> int:
-    """Gates packed per 128-lane block in the compact ("C") kernel layout:
-    4 (all gates in one block), 2 (two per block), or 1 (= P-layout)."""
-    if 4 * n <= lane:
-        return 4
-    if 2 * n <= lane:
-        return 2
-    return 1
-
-
-def pack_gate_cols_compact(M: jax.Array, n: int, k: int, lane: int = 128) -> jax.Array:
-    """(rows, 4n) keras gate order [i|f|g|o] -> (rows, (4//k)*lane) compact
-    layout with k gates per lane block, reordered so each block's gate
-    pairing matches the kernel's roll-based extraction:
-
-    * k=4: one block  [i|g|f|o] at offsets 0, n, 2n, 3n
-    * k=2: block 0 = [i|g], block 1 = [f|o] (each at offsets 0, n)
-
-    The c-update needs i·g and f·c elementwise at common lanes; this order
-    makes every extraction either already lane-0-aligned (i, f) or a single
-    static intra-block roll (g, o) — no unaligned lane slices."""
-    order = (0, 2, 1, 3) if k in (2, 4) else (0, 1, 2, 3)
-    G = 4 // k
-    out = jnp.zeros((M.shape[0], G * lane), M.dtype)
-    for slot, gate in enumerate(order):
-        blk, off = divmod(slot, k)
-        out = out.at[:, blk * lane + off * n : blk * lane + off * n + n].set(
-            M[:, gate * n : (gate + 1) * n]
-        )
     return out
 
 

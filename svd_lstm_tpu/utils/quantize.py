@@ -7,10 +7,8 @@ per-output-column int8 quantization of the weight matrices, which
 * cuts checkpoint / export / device-resident weight size 4x vs f32
   (``quantize_params`` + ``quantized_apply``: params cross HBM as int8 and
   widen on-chip inside the caller's jit), and
-* enables int8 weight *streaming* in kernels that read weights every step
-  (the batch-1 fused kernels are VMEM-bandwidth-bound on weight streaming —
-  BENCH_NOTES.md); that path needs kernel-side dequantization and is wired
-  where measured to win.
+* could enable int8 weight *streaming* in kernels that read weights every
+  step; that path needs kernel-side dequantization and is not wired.
 
 It composes with rank truncation: quantize the reduced model's two-step
 factors (B, C) after truncation. Gate math stays f32.
@@ -94,8 +92,8 @@ def quantize_params(params: Any) -> Any:
     # applies (io/int8_export.py module docstring): C = V1^-1 V2 carries
     # the inverse's dynamic range, and a raw per-column int8 grid on it
     # costs real task accuracy (measured ~26-30% model-vs-model noise at
-    # the reference scale vs 0.7% for dense — BENCH_NOTES §int8 artifact
-    # compensation). Re-solve C against the quantized B, then quantize.
+    # the reference scale vs 0.7% for dense —
+    # scripts/int8_compensation_study.py). Re-solve C against the quantized B, then quantize.
     from svd_lstm_tpu.models.reduced import ReducedModelParams
 
     # Conv hybrids: the conv kernel (k, c_in, filters) quantizes per FILTER
@@ -187,9 +185,9 @@ def quantized_apply(apply_fn):
 # compensation the exporter applies), gradients pass through to the f32
 # master weights unchanged. Fine-tuning against this view adapts the
 # weights to their own quantization grid before export — the remaining
-# artifact error the post-training compensation can't remove (BENCH_NOTES
-# §int8 artifact compensation: reduced models keep ~11-15% model-vs-model
-# noise after compensation) becomes a training signal instead.
+# artifact error the post-training compensation can't remove
+# (scripts/int8_compensation_study.py: reduced models keep ~11-15%
+# model-vs-model noise after compensation) becomes a training signal instead.
 # --------------------------------------------------------------------------
 
 

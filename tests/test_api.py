@@ -55,8 +55,7 @@ def test_predict_precision_modes(models, rng):
     xb = jnp.asarray(rng.normal(size=(3, 30, 6)), jnp.float32)
     x1 = jnp.asarray(rng.normal(size=(30, 6)), jnp.float32)
     # fast/bf16 tolerance is loose here: random untrained weights produce
-    # near-zero outputs, inflating relative error (measured 1e-2 on real
-    # trained wide models — BENCH_NOTES.md)
+    # near-zero outputs, inflating relative error
     for m, fast_tol in ((dense, 5e-2), (rmodel, 0.25)):
         ref = np.asarray(st.predict(m, xb))
         scale = np.abs(ref).max()
@@ -82,13 +81,14 @@ def test_predict_rejects_bad_args(models, rng):
     xb = jnp.asarray(rng.normal(size=(2, 10, 6)), jnp.float32)
     with pytest.raises(ValueError):  # batch-1 input must also validate precision
         st.predict(dense, x1, precision="bogus")
-    for impl in ("fused", "hybrid"):  # batch-1-only kernels refuse batched input
-        with pytest.raises(ValueError):
-            st.predict(dense, xb, impl=impl)
+    with pytest.raises(ValueError):  # the batch-1 kernel refuses batched input
+        st.predict(dense, xb, impl="fused")
+    with pytest.raises(ValueError, match="unknown impl"):  # removed with its kernel
+        st.predict(dense, x1, impl="hybrid")
     # explicit 'fused' on a wide model must refuse, not silently run the
-    # scan/hybrid under the wrong label
+    # scan under the wrong label
     wide = init_stacked_lstm(jax.random.PRNGKey(9), input_dim=6, units=(256,))
-    with pytest.raises(ValueError, match="n <= 128"):
+    with pytest.raises(ValueError, match="MAX_UNITS"):
         st.predict(wide, jnp.zeros((4, 6)), impl="fused")
 
 

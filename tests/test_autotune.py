@@ -1,10 +1,11 @@
 """bench.autotune: measured-best impl selection + persistent cache.
 
-On CPU the Pallas candidates fail to lower and must be isolated into
-``failed`` while the XLA scan survives and wins — the same mechanism that
-on TPU picks the kernel routes by measurement instead of the api table."""
+Device time needs the GPU (bench.devtime raises elsewhere), so these CPU
+tests inject a timer: the selection, failure isolation and caching logic
+is the same whatever the clock."""
 
 import json
+import time
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,14 @@ from svd_lstm_tpu.api import predict
 from svd_lstm_tpu.models.lstm import init_stacked_lstm
 
 
+def wall_timer(fn, *args, repeats=1):
+    """Host-clock stand-in for bench.devtime.device_time_ms."""
+    jax.block_until_ready(fn(*args))
+    t0 = time.perf_counter()
+    jax.block_until_ready(fn(*args))
+    return (time.perf_counter() - t0) * 1e3 + 1e-6
+
+
 @pytest.fixture()
 def model_x():
     params = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=4, units=(6, 5))
@@ -25,27 +34,34 @@ def model_x():
 
 def test_candidates_follow_api_rules(model_x):
     params, x = model_x
-    assert at.candidates(params, x) == ["scan", "fused", "hybrid"]
+    assert at.candidates(params, x) == ["scan", "fused"]
     wide = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=4, units=(256,))
-    assert at.candidates(wide, x) == ["scan", "hybrid"]  # fused is n<=128 only
+    assert at.candidates(wide, x) == ["scan"]  # wider than the kernel takes
+    # 100 units: past the exact kernel's 64, within the TF32 kernel's 128
+    mid = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=4, units=(100,))
+    assert at.candidates(mid, x) == ["scan"]
+    assert at.candidates(mid, x, "fast") == ["scan", "fused"]
     xb = x[None]
-    # batched exact: 'auto' IS the scan — measuring both would pick a
-    # winner between identical code paths by noise
-    assert at.candidates(params, xb) == ["scan"]
-    assert at.candidates(params, xb, "high") == ["scan"]
-    # batched fast only diverges on TPU (the Pallas batched kernel)
-    expect = ["auto", "scan"] if jax.devices()[0].platform != "cpu" else ["scan"]
-    assert at.candidates(params, xb, "fast") == expect
+    # batched: 'auto' IS the scan in every mode — measuring both would
+    # pick a winner between identical code paths by noise
+    for prec in ("exact", "high", "fast"):
+        assert at.candidates(params, xb, prec) == ["scan"]
 
 
 def test_autotune_survives_kernel_failures_and_picks_scan(model_x):
+    """A candidate that fails is recorded in ``failed``, not raised, and
+    the winner is the fastest of the survivors."""
     params, x = model_x
-    r = at.autotune(params, x, repeats=1)
-    assert "scan" in r.table and r.table[r.impl] == min(r.table.values())
-    # off-TPU the Pallas candidates die and are recorded, not raised
-    if jax.devices()[0].platform == "cpu":
-        assert r.impl in ("scan",) and set(r.failed) == {"fused", "hybrid"}
-    assert r.ms > 0
+    times = iter([1.0, 2.0])
+
+    def timer(fn, *args, repeats=1):
+        jax.block_until_ready(fn(*args))
+        return next(times)
+
+    r = at.autotune(params, x, impls=["scan", "bogus", "fused"], timer=timer)
+    assert r.table == {"scan": 1.0, "fused": 2.0}
+    assert r.impl == "scan" and r.ms == 1.0
+    assert set(r.failed) == {"bogus"} and "unknown impl" in r.failed["bogus"]
 
 
 def test_cache_key_distinguishes(model_x):
@@ -96,28 +112,30 @@ def test_tuned_impl_caches_to_disk_and_memory(model_x, tmp_path, monkeypatch):
     cache = str(tmp_path / "autotune.json")
     monkeypatch.setattr(at, "_MEM_CACHE", {})
 
-    impl = at.tuned_impl(params, x, cache_path=cache)
-    assert impl == "scan"
+    impl = at.tuned_impl(params, x, cache_path=cache, timer=wall_timer)
+    assert impl in ("scan", "fused")
     data = json.load(open(cache))
-    assert list(data.values()) == ["scan"]
+    assert list(data.values()) == [impl]
 
     # second call must not re-measure: poison autotune
     def boom(*a, **k):
         raise AssertionError("re-measured despite cache")
 
     monkeypatch.setattr(at, "autotune", boom)
-    assert at.tuned_impl(params, x, cache_path=cache) == "scan"
+    assert at.tuned_impl(params, x, cache_path=cache) == impl
     # disk-only hit (fresh memory cache) also avoids re-measuring
     monkeypatch.setattr(at, "_MEM_CACHE", {})
-    assert at.tuned_impl(params, x, cache_path=cache) == "scan"
+    assert at.tuned_impl(params, x, cache_path=cache) == impl
 
 
 def test_predict_tuned_matches_predict(model_x, tmp_path, monkeypatch):
     params, x = model_x
     monkeypatch.setattr(at, "_MEM_CACHE", {})
-    y = at.predict_tuned(params, x, cache_path=str(tmp_path / "c.json"))
+    y = at.predict_tuned(params, x, cache_path=str(tmp_path / "c.json"),
+                         timer=wall_timer)
+    # either winner computes the same model (kernel vs scan: f32 roundoff)
     np.testing.assert_allclose(
-        np.asarray(y), np.asarray(predict(params, x, impl="scan")), rtol=1e-6
+        np.asarray(y), np.asarray(predict(params, x, impl="scan")), atol=1e-5
     )
 
 
@@ -135,17 +153,12 @@ def test_autotune_train_dense_measures_all_regimes(model_x):
     is a relaxed regime, and f32_scan is context-only."""
     params, _ = model_x
     x, y = _train_xy()
-    r = at.autotune_train(params, x, y, repeats=1)
-    assert set(r.table) >= {"f32_scan", "bf16_scan"}
+    r = at.autotune_train(params, x, y, repeats=1, timer=wall_timer)
+    assert set(r.table) == {"f32_scan", "tf32_scan", "bf16_scan", "fused_kernel"}
     assert (r.matmul_precision, r.recurrence_kernel) in {
-        ("tensorfloat32", False), ("bfloat16", False), ("bfloat16", True)
+        ("tensorfloat32", False), ("bfloat16", False), ("tensorfloat32", True)
     }
     assert r.ms == min(v for k, v in r.table.items() if k != "f32_scan")
-    # this narrow stack packs >= 2 gates per block, so the compact-layout
-    # regime is a distinct candidate and must be measured, not skipped
-    assert "fused_kernel_compact" in r.table
-    if not r.recurrence_kernel:
-        assert r.compact_gates is False
 
 
 def test_autotune_train_singular_uses_masked_step(model_x):
@@ -156,21 +169,21 @@ def test_autotune_train_singular_uses_masked_step(model_x):
     params, _ = model_x
     sp = make_singular_model(params, merged_kernel=False)
     x, y = _train_xy()
-    r = at.autotune_train(sp, x, y, repeats=1)
+    r = at.autotune_train(sp, x, y, repeats=1, timer=wall_timer)
     assert "bf16_scan" in r.table and r.ms > 0
 
 
 def test_autotune_train_conv_hybrid_measures_kernel():
-    """Round 4: conv hybrids route through the fused Pallas training
-    engine (ops/conv_train.py), so the fused_kernel regime is MEASURED —
-    no family records 'failed' for it anymore."""
+    """Conv hybrids route through the recurrence kernel pair
+    (ops/conv_train.py), so the fused_kernel regime is MEASURED — no
+    family records 'failed' for it."""
     from svd_lstm_tpu.models.conv import init_conv_lstm
 
     hybrid = init_conv_lstm(
         jax.random.PRNGKey(0), in_channels=4, filters=6, kernel_size=3, units=(6,)
     )
     x, y = _train_xy()
-    r = at.autotune_train(hybrid, x, y, repeats=1)
+    r = at.autotune_train(hybrid, x, y, repeats=1, timer=wall_timer)
     assert "fused_kernel" in r.table
     assert "fused_kernel" not in r.failed
 
@@ -180,9 +193,9 @@ def test_tuned_train_flags_cache_roundtrip(model_x, tmp_path, monkeypatch):
     x, y = _train_xy()
     cache = str(tmp_path / "autotune.json")
     monkeypatch.setattr(at, "_MEM_CACHE", {})
-    prec, kernel, compact = at.tuned_train_flags(params, x, y, cache_path=cache)
+    prec, kernel = at.tuned_train_flags(params, x, y, cache_path=cache,
+                                        timer=wall_timer)
     assert prec in ("tensorfloat32", "bfloat16") and isinstance(kernel, bool)
-    assert isinstance(compact, bool)
     data = json.load(open(cache))
     assert len(data) == 1
 
@@ -190,15 +203,15 @@ def test_tuned_train_flags_cache_roundtrip(model_x, tmp_path, monkeypatch):
         raise AssertionError("re-measured despite cache")
 
     monkeypatch.setattr(at, "autotune_train", boom)
-    flags = (prec, kernel, compact)
+    flags = (prec, kernel)
     assert at.tuned_train_flags(params, x, y, cache_path=cache) == flags
     monkeypatch.setattr(at, "_MEM_CACHE", {})
     assert at.tuned_train_flags(params, x, y, cache_path=cache) == flags
 
 
 # ----------------------------------------------- auto-dispatch consult --
-# VERDICT r3 #4: predict(impl='auto') consults the autotune cache so one
-# `tune` run redirects every later auto-dispatch on the same device.
+# predict(impl='auto') consults the autotune cache so one `tune` run
+# redirects every later auto-dispatch on the same device.
 
 
 @pytest.fixture()
@@ -212,22 +225,21 @@ def clean_cache(tmp_path, monkeypatch):
 
 def test_cached_impl_redirects_predict_auto(model_x, clean_cache, monkeypatch):
     """A seeded device-keyed winner redirects predict(impl='auto') to the
-    measured path instead of the fitted table (which on CPU would run the
-    scan for this narrow batch-1 model)."""
-    import svd_lstm_tpu.ops.pallas_lstm as pk
+    measured path instead of the rule (which on CPU would run the scan for
+    this narrow batch-1 model)."""
+    import svd_lstm_tpu.ops.gpu_recurrence as gr
 
     params, x = model_x
-    at.store_tuned(at.cache_key(params, x, "exact"), "hybrid")
+    at.store_tuned(at.cache_key(params, x, "exact"), "fused")
 
     hits = {"n": 0}
-    orig = pk.dense_forward_hybrid
+    orig = gr.stack_forward
 
     def spy(p, xx, **kw):
         hits["n"] += 1
-        kw["interpret"] = True  # Pallas on the CI CPU
         return orig(p, xx, **kw)
 
-    monkeypatch.setattr(pk, "dense_forward_hybrid", spy)
+    monkeypatch.setattr(gr, "stack_forward", spy)
     y = predict(params, x, impl="auto")
     assert hits["n"] == 1, "cached winner not dispatched"
     y_scan = predict(params, x, impl="scan")
@@ -256,7 +268,7 @@ def test_cached_impl_reads_disk_never_measures(model_x, clean_cache, monkeypatch
 def test_stale_cache_entry_ignored(clean_cache):
     """A cached winner that is invalid for the input (here 'fused' for a
     wide model — its n<=128 rule) is ignored, not raised: predict falls
-    back to the fitted table."""
+    back to the rule."""
     wide = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=4, units=(256,))
     x = jax.random.normal(jax.random.PRNGKey(1), (12, 4))
     at.store_tuned(at.cache_key(wide, x, "exact"), "fused")
@@ -269,18 +281,18 @@ def test_cached_train_flags_readonly(model_x, clean_cache, monkeypatch):
     params, _ = model_x
     x, _y = _train_xy()
     assert at.cached_train_flags(params, x) is None
-    # legacy 2-field entry (pre-round-4 cache): compact defaults False
     at.store_tuned(at.train_cache_key(params, x), "bfloat16|1")
     monkeypatch.setattr(at, "_MEM_CACHE", {})  # force the disk layer
-    assert at.cached_train_flags(params, x) == ("bfloat16", True, False)
-    at.store_tuned(at.train_cache_key(params, x), "bfloat16|1|1")
-    assert at.cached_train_flags(params, x) == ("bfloat16", True, True)
+    assert at.cached_train_flags(params, x) == ("bfloat16", True)
+    # an older entry's trailing layout field is ignored
+    at.store_tuned(at.train_cache_key(params, x), "tensorfloat32|0|1")
+    assert at.cached_train_flags(params, x) == ("tensorfloat32", False)
 
 
 def test_store_tuned_populates_memo(model_x, clean_cache, monkeypatch):
     """The CLI's post-measurement store must hit the in-process memo too
-    (ADVICE r3: tune --train used to write disk only, so a same-process
-    tuned_train_flags re-read disk instead of the memo)."""
+    (a disk-only write would make a same-process tuned_train_flags re-read
+    disk instead of the memo)."""
     params, x = model_x
     key = at.cache_key(params, x, "exact")
     at.store_tuned(key, "scan")
@@ -290,9 +302,9 @@ def test_store_tuned_populates_memo(model_x, clean_cache, monkeypatch):
 
 
 # ------------------------------------------------- fit auto_flags consult --
-# VERDICT r4 #7: `tune --train` writes cached_train_flags, and
-# TrainConfig.auto_flags makes fit/finetune consult it — tune once, train
-# measured-best thereafter (symmetric with predict(impl='auto')).
+# `tune --train` writes cached_train_flags, and TrainConfig.auto_flags
+# makes fit/finetune consult it — tune once, train measured-best
+# thereafter (symmetric with predict(impl='auto')).
 
 
 def _tiny_train_setup():
@@ -324,24 +336,20 @@ def _spy_resolved_cfg(monkeypatch):
 def test_fit_consults_cached_train_flags(clean_cache, monkeypatch):
     """A seeded cache entry for the production window-batch shape
     (batch_size, window_len, d) redirects fit's training regime to the
-    measured-best (matmul_precision, recurrence_kernel, compact_gates)."""
+    measured-best (matmul_precision, recurrence_kernel)."""
     from svd_lstm_tpu.train.loop import fit
 
     params, X, y, cfg = _tiny_train_setup()
     probe = np.empty((cfg.batch_size, cfg.window_len, 4), dtype=np.float32)
     at.store_tuned(
         at.train_cache_key(params, probe),
-        at.encode_train_flags("bfloat16", True, False),
+        at.encode_train_flags("bfloat16", True),
     )
     seen = _spy_resolved_cfg(monkeypatch)
     res = fit(params, X, y, cfg=cfg)
     assert len(res.history) == 1
     got = seen["cfg"]
-    assert (
-        got.matmul_precision,
-        got.recurrence_kernel,
-        got.compact_gates,
-    ) == ("bfloat16", True, False)
+    assert (got.matmul_precision, got.recurrence_kernel) == ("bfloat16", True)
 
 
 def test_fit_auto_flags_miss_keeps_config(clean_cache, monkeypatch):
@@ -358,11 +366,7 @@ def test_fit_auto_flags_miss_keeps_config(clean_cache, monkeypatch):
     seen = _spy_resolved_cfg(monkeypatch)
     fit(params, X, y, cfg=cfg)
     got = seen["cfg"]
-    assert (
-        got.matmul_precision,
-        got.recurrence_kernel,
-        got.compact_gates,
-    ) == ("float32", False, "auto")
+    assert (got.matmul_precision, got.recurrence_kernel) == ("float32", False)
 
 
 def test_finetune_consults_cached_train_flags(clean_cache, monkeypatch):
@@ -377,7 +381,7 @@ def test_finetune_consults_cached_train_flags(clean_cache, monkeypatch):
     probe = np.empty((cfg.batch_size, cfg.window_len, 4), dtype=np.float32)
     at.store_tuned(
         at.train_cache_key(sp, probe),
-        at.encode_train_flags("tensorfloat32", True, False),
+        at.encode_train_flags("tensorfloat32", True),
     )
     seen = _spy_resolved_cfg(monkeypatch)
     finetune(sp, X, y, factor_cfg=FactorConfig(), train_cfg=cfg)

@@ -34,9 +34,20 @@ def test_export_command_roundtrip(tmp_path):
 
 def test_tune_command_prints_table_and_caches(tmp_path, capsys, monkeypatch):
     """CLI tune: measures valid impls for a checkpoint, prints the table
-    with a winner, memoizes to the autotune cache."""
+    with a winner, memoizes to the autotune cache. Device time needs the
+    GPU, so the CPU run injects a host-clock timer."""
+    import time
+
     import svd_lstm_tpu.bench.autotune as at
     from svd_lstm_tpu.__main__ import _tune
+
+    def wall_timer(fn, *args, repeats=1):
+        jax.block_until_ready(fn(*args))
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        return (time.perf_counter() - t0) * 1e3 + 1e-6
+
+    monkeypatch.setattr(at, "device_time_ms", wall_timer)
 
     params = init_stacked_lstm(jax.random.PRNGKey(1), input_dim=4, units=(6,))
     ckpt = str(tmp_path / "m.npz")

@@ -2,7 +2,7 @@
 
 The reference trains its Conv1D+LSTM hybrid end-to-end
 (code/old_versions/toy-convolution.py:70-76); ops/conv_train.py routes
-that training through the fused Pallas engine by hoisting the conv front
+that training through the recurrence kernel pair by hoisting the conv front
 end (standard XLA VJP) and feeding the stack's fast-train applies. These
 tests pin, per family (dense / singular / reduced hybrid):
 
@@ -12,8 +12,7 @@ tests pin, per family (dense / singular / reduced hybrid):
     — against autodiff of the scan forward,
 (c) that fit/finetune with ``TrainConfig(recurrence_kernel=True)``
     actually takes the kernel path for the hybrid applies,
-(d) the chunked large-batch dispatch (the Mosaic B>=512 cliff rule
-    applies to the conv-fed programs too).
+(d) a large padded batch through the kernel's batch-tile grid.
 """
 
 import jax
@@ -81,7 +80,7 @@ def test_forward_parity_interpret(rng, family):
     p = make(_hybrid())
     x = jnp.asarray(rng.normal(size=(8, 6, 4)).astype(np.float32))
     y_ref = np.asarray(scan_apply(p, x, return_sequences=True))
-    y = np.asarray(fast_apply(p, x, interpret=True))
+    y = np.asarray(fast_apply(p, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
 
@@ -105,7 +104,7 @@ def test_gradient_parity_all_params(rng, family):
     g_ref = jax.grad(loss(scan_apply))(p)
     g_ker = jax.grad(
         loss(lambda q, xx, return_sequences: fast_apply(
-            q, xx, return_sequences=return_sequences, interpret=True
+            q, xx, return_sequences=return_sequences
         ))
     )(p)
     for a, b, path in zip(
@@ -129,7 +128,7 @@ def test_conv_gradient_nonzero(rng):
 
     def f(q):
         pred = conv_lstm_apply_fast_train(
-            q, x, return_sequences=False, interpret=True
+            q, x, return_sequences=False
         )[..., 0]
         return jnp.mean(jnp.square(pred - y))
 
@@ -140,20 +139,20 @@ def test_conv_gradient_nonzero(rng):
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_chunked_large_batch(rng, family):
-    """B past the whole-batch cliff runs the kernel over balanced chunks
-    (conv-fed programs follow the reconstruction-fed rule) and still
-    matches the scan forward exactly."""
+    """A large batch (B=504: 32 batch tiles, the last one padded) of
+    conv-fed input runs the kernel's batch-tile grid and still matches
+    the scan forward exactly."""
     make, scan_apply, fast_apply = FAMILIES[family]
     p = make(_hybrid(units=(12,)))
     x = jnp.asarray(rng.normal(size=(504, 5, 4)).astype(np.float32))
     y_ref = np.asarray(scan_apply(p, x, return_sequences=True))
-    y = np.asarray(fast_apply(p, x, interpret=True))
+    y = np.asarray(fast_apply(p, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
 
 def test_fit_honors_recurrence_kernel(rng, monkeypatch):
     """fit() swaps conv_lstm_apply for the kernel path when
-    TrainConfig.recurrence_kernel=True (VERDICT r3 next-round #1)."""
+    TrainConfig.recurrence_kernel=True."""
     import svd_lstm_tpu.ops.conv_train as ct_mod
     from svd_lstm_tpu.train.loop import fit
 

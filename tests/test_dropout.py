@@ -67,7 +67,7 @@ def test_inverted_scaling_keeps_expectation(layer):
 # ---------------------------------------------------------------------------
 # Dropout in the factorized (singular) forward — reference
 # code/svd_classes_v3.py:121-137 (merged: one mask) and :154-205 (split:
-# per-gate masks). VERDICT.md missing #1 / next-round #6.
+# per-gate masks).
 # ---------------------------------------------------------------------------
 
 from svd_lstm_tpu.factor.svd import make_singular_model

@@ -1,5 +1,6 @@
-"""Fused execution layouts: singular/reduced dense-collapse through the
-fused kernel (interpret mode)."""
+"""Kernel execution layouts: singular/reduced dense-collapse through the
+recurrence kernel (``predict(impl="fused")``, interpret mode on the CPU).
+5e-5 on O(1) outputs bounds the collapse's one rounding per weight."""
 
 import numpy as np
 import pytest
@@ -9,12 +10,9 @@ import jax.numpy as jnp
 from svd_lstm_tpu.factor.svd import make_reduced_model, make_singular_model
 from svd_lstm_tpu.models.lstm import init_stacked_lstm, stacked_lstm_apply
 from svd_lstm_tpu.models.reduced import reduced_lstm_apply
+from svd_lstm_tpu.api import predict
 from svd_lstm_tpu.models.singular import singular_lstm_apply
-from svd_lstm_tpu.ops.layouts import (
-    reconstruct_dense_model,
-    reduced_forward_fused,
-    singular_forward_fused,
-)
+from svd_lstm_tpu.ops.layouts import reconstruct_dense_model
 
 
 @pytest.fixture(scope="module")
@@ -30,7 +28,7 @@ def x(rng_mod=np.random.default_rng(12)):
 def test_singular_fused_matches_scan(dense, x):
     smodel = make_singular_model(dense, merged_kernel=False)
     ref = np.asarray(singular_lstm_apply(smodel, x[None]))[0]
-    got = np.asarray(singular_forward_fused(smodel, x, interpret=True))
+    got = np.asarray(predict(smodel, x, impl="fused"))
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
 
@@ -38,7 +36,7 @@ def test_singular_fused_matches_scan(dense, x):
 def test_reduced_fused_matches_scan(dense, x, merged):
     rmodel = make_reduced_model(make_singular_model(dense, merged_kernel=merged), rank=5)
     ref = np.asarray(reduced_lstm_apply(rmodel, x[None]))[0]
-    got = np.asarray(reduced_forward_fused(rmodel, x, interpret=True))
+    got = np.asarray(predict(rmodel, x, impl="fused"))
     np.testing.assert_allclose(got, ref, atol=5e-5)
 
 

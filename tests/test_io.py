@@ -26,7 +26,7 @@ class TestRoundtrip:
 
 class TestOrbaxCheckpoint:
     def test_roundtrip_all_model_families(self, tmp_path):
-        """Orbax checkpoints (SURVEY §5's TPU-native checkpoint equivalent)
+        """Orbax checkpoints (SURVEY §5's checkpoint equivalent)
         must round-trip dense/singular/reduced pytrees exactly, restoring
         the NamedTuple structure without a template, and `load_params` must
         auto-detect the directory format."""
@@ -84,7 +84,7 @@ class TestGoldenFixtures:
 
 class TestReferencePredictionParity:
     """Partial golden-parity against the reference's shipped
-    ``model_prediction.csv`` (VERDICT.md missing #3).
+    ``model_prediction.csv``.
 
     Full replay is blocked upstream: the model input series
     ``preprocessed_DROPBEAR_X.csv`` was stripped as a large blob

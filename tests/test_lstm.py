@@ -115,10 +115,10 @@ class TestInit:
 
 
 def test_gate_update_bwd_matches_autodiff(rng):
-    """gate_update_bwd is THE cell-gradient formula both Pallas backward
-    kernels call; pin it directly against jax's VJP of gate_update (the
-    kernels' own parity tests validate it only end-to-end)."""
-    from svd_lstm_tpu.models.lstm import gate_update, gate_update_bwd
+    """cell_update_bwd is THE cell-gradient formula the backward kernel
+    calls; pin it directly against jax's VJP of gate_update (the kernel's
+    own parity tests validate it only end-to-end)."""
+    from svd_lstm_tpu.models.lstm import cell_update_bwd, gate_update, split_gates
 
     B, n = 3, 7
     z = jnp.asarray(rng.normal(size=(B, 4 * n)), jnp.float32)
@@ -128,6 +128,7 @@ def test_gate_update_bwd_matches_autodiff(rng):
 
     (h, c_t), vjp = jax.vjp(gate_update, z, c_prev)
     dz_ref, dcp_ref = vjp((dh, dc))
-    dz, dcp = gate_update_bwd(z, c_prev, c_t, dh, dc)
+    dz, dcp = cell_update_bwd(*split_gates(z), c_prev, c_t, dh, dc)
+    dz = jnp.concatenate(dz, axis=-1)
     np.testing.assert_allclose(np.asarray(dz), np.asarray(dz_ref), atol=1e-6)
     np.testing.assert_allclose(np.asarray(dcp), np.asarray(dcp_ref), atol=1e-6)

@@ -36,10 +36,49 @@ def test_json_to_csv(tmp_path):
 
 
 def test_device_time_ms_cpu():
+    """On the CPU the trace has no GPU device plane: device_time_ms raises
+    rather than reporting host time as device time."""
     f = jax.jit(lambda x: jnp.tanh(x @ x).sum())
     x = jnp.ones((256, 256))
-    ms = device_time_ms(f, x, repeats=2)
-    assert 0 < ms < 10_000
+    with pytest.raises(RuntimeError, match="no kernel events"):
+        device_time_ms(f, x, repeats=1)
+
+
+_GPU_TRACE = """
+planes { id: 1 name: "/host:CPU" lines { id: 1 name: "python"
+  events { metadata_id: 1 offset_ps: 0 duration_ps: 9000000000 } }
+  event_metadata { key: 1 value { id: 1 name: "PjitFunction(f)" } } }
+planes { id: 2 name: "/device:GPU:0"
+  lines { id: 3 name: "Stream #13(Compute)"
+    events { metadata_id: 1 offset_ps: 0 duration_ps: 2500000 }
+    events { metadata_id: 2 offset_ps: 3000000 duration_ps: 500000 } }
+  lines { id: 4 name: "Stream #14(MemcpyD2D)"
+    events { metadata_id: 2 offset_ps: 0 duration_ps: 250000 } }
+  event_metadata { key: 1 value { id: 1 name: "lstm_recurrence_fwd" } }
+  event_metadata { key: 2 value { id: 2 name: "loop_add_fusion" } } }
+"""
+
+
+@pytest.mark.parametrize("drop_device_plane", [False, True])
+def test_kernel_ms_sums_gpu_stream_events(drop_device_plane):
+    """The device-time reduction on a recorded GPU-shaped trace: every
+    kernel event on a /device:GPU:* stream line counts, host spans never
+    do; without a device plane it raises."""
+    from jax.profiler import ProfileData
+
+    from svd_lstm_tpu.bench.devtime import kernel_events, kernel_ms
+
+    txt = _GPU_TRACE
+    if drop_device_plane:
+        txt = txt[: txt.index('planes { id: 2')]
+    pdata = ProfileData.from_text_proto(txt)
+    if drop_device_plane:
+        with pytest.raises(RuntimeError):
+            kernel_ms(pdata)
+        return
+    assert kernel_ms(pdata) == pytest.approx(2.5e-3 + 0.5e-3 + 0.25e-3)
+    names = sorted(ev.name for _, _, ev in kernel_events(pdata))
+    assert names == ["loop_add_fusion", "loop_add_fusion", "lstm_recurrence_fwd"]
 
 
 def test_csv_default_roundtrip_is_exact(tmp_path, rng):

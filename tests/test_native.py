@@ -176,7 +176,7 @@ def test_mixed_kinds_native_matches_jax(tmp_path, rng):
 def test_load_time_dispatch_densifies_shallow_ranks(tmp_path, dense, rng):
     """'r' kind: a reduced export whose rank can't pay for the two-step
     (r/n >= 0.45) is reconstructed to dense at load; 'R' forces the raw
-    factored path. Both give identical numerics (VERDICT r2 next #5)."""
+    factored path. Both give identical numerics."""
     # rank 8 of n=10/8: r/n = 0.8 and 1.0 -> both sides densify
     rmodel = make_reduced_model(make_singular_model(dense, merged_kernel=False), rank=8)
     save_reduced_weights_as_csv(rmodel, str(tmp_path))

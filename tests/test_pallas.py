@@ -1,5 +1,8 @@
-"""Pallas kernel correctness vs the XLA scan reference (interpret mode on
-CPU; the same kernels compile for TPU — exercised by bench.py on hardware)."""
+"""Recurrence kernel (ops/gpu_recurrence.py) forward vs the XLA scan
+reference, whole stacks, in interpret mode on the CPU (the compiled Triton
+kernels are checked on the card by tests/test_gpu_compiled.py). CPU dots
+are exact f32, so 2e-5 on O(1) outputs bounds summation-order roundoff
+through two layers and the reduced model's one reconstruction rounding."""
 
 import numpy as np
 import pytest
@@ -9,15 +12,8 @@ import jax.numpy as jnp
 from svd_lstm_tpu.factor.svd import make_reduced_model, make_singular_model
 from svd_lstm_tpu.models.lstm import init_stacked_lstm, stacked_lstm_apply
 from svd_lstm_tpu.models.reduced import reduced_lstm_apply
-from svd_lstm_tpu.ops.pallas_lstm import (
-    dense_forward_hybrid,
-    fused_dense_stack_pallas,
-    fused_reduced_stack_pallas,
-    lstm_recurrence_pallas,
-    reduced_forward_hybrid,
-    reduced_recurrence_pallas,
-)
-from svd_lstm_tpu.ops.recurrence import lstm_recurrence_xla, reduced_recurrence_xla
+from svd_lstm_tpu.ops.gpu_recurrence import stack_forward
+from svd_lstm_tpu.ops.layouts import reconstruct_dense_model
 
 
 @pytest.fixture(scope="module")
@@ -30,134 +26,19 @@ def x_run(rng_mod=np.random.default_rng(11)):
     return jnp.asarray(rng_mod.normal(size=(50, 16)), jnp.float32)
 
 
-class TestRecurrenceKernels:
-    def test_dense_recurrence_matches_xla(self, rng):
-        T, n = 30, 16
-        xp = jnp.asarray(rng.normal(size=(T, 4 * n)), jnp.float32)
-        U = jnp.asarray(rng.normal(scale=0.3, size=(n, 4 * n)), jnp.float32)
-        h0 = jnp.zeros((1, n))
-        c0 = jnp.zeros((1, n))
-        ours = lstm_recurrence_pallas(xp, U, h0, c0, interpret=True)
-        ref = lstm_recurrence_xla(xp[None], U, h0, c0)[0]
-        np.testing.assert_allclose(np.asarray(ours), np.asarray(ref), atol=1e-5)
-
-    @pytest.mark.parametrize("merged", [True, False])
-    def test_reduced_recurrence_matches_xla(self, rng, merged):
-        T, n, r = 30, 16, 7
-        xp = jnp.asarray(rng.normal(size=(T, 4 * n)), jnp.float32)
-        if merged:
-            uB = jnp.asarray(rng.normal(scale=0.3, size=(n, r)), jnp.float32)
-            uC = jnp.asarray(rng.normal(scale=0.3, size=(r, 4 * n - r)), jnp.float32)
-        else:
-            uB = tuple(
-                jnp.asarray(rng.normal(scale=0.3, size=(n, r + g)), jnp.float32)
-                for g in range(4)
-            )
-            uC = tuple(
-                jnp.asarray(rng.normal(scale=0.3, size=(r + g, n - r - g)), jnp.float32)
-                for g in range(4)
-            )
-        h0 = jnp.zeros((1, n))
-        c0 = jnp.zeros((1, n))
-        ours = reduced_recurrence_pallas(xp, uB, uC, h0, c0, interpret=True)
-        ref = reduced_recurrence_xla(xp[None], uB, uC, h0, c0)[0]
-        np.testing.assert_allclose(np.asarray(ours), np.asarray(ref), atol=1e-5)
-
-    def test_full_rank_reduced_recurrence(self, rng):
-        """r == n per gate → uC has zero width; kernel must skip the second step."""
-        T, n = 10, 8
-        xp = jnp.asarray(rng.normal(size=(T, 4 * n)), jnp.float32)
-        uB = tuple(
-            jnp.asarray(rng.normal(scale=0.3, size=(n, n)), jnp.float32) for _ in range(4)
-        )
-        uC = tuple(jnp.zeros((n, 0), jnp.float32) for _ in range(4))
-        h0 = jnp.zeros((1, n))
-        c0 = jnp.zeros((1, n))
-        ours = reduced_recurrence_pallas(xp, uB, uC, h0, c0, interpret=True)
-        ref = reduced_recurrence_xla(xp[None], uB, uC, h0, c0)[0]
-        np.testing.assert_allclose(np.asarray(ours), np.asarray(ref), atol=1e-5)
-
-
 class TestFusedStacks:
     def test_fused_dense_matches_scan(self, dense_model, x_run):
         ref = np.asarray(stacked_lstm_apply(dense_model, x_run[None]))[0]
-        ours = np.asarray(fused_dense_stack_pallas(dense_model, x_run, interpret=True))
+        ours = np.asarray(stack_forward(dense_model, x_run))
         np.testing.assert_allclose(ours, ref, atol=2e-5)
-
-    def test_hybrid_dense_matches_scan(self, dense_model, x_run):
-        ref = np.asarray(stacked_lstm_apply(dense_model, x_run[None]))[0]
-        ours = np.asarray(dense_forward_hybrid(dense_model, x_run, interpret=True))
-        np.testing.assert_allclose(ours, ref, atol=2e-5)
-
-    def test_hybrid_dense_bf16_weights(self, dense_model, x_run):
-        """bf16-stored U (the wide weight-read-bound optimization) stays in
-        the fast-mode accuracy class."""
-        ref = np.asarray(stacked_lstm_apply(dense_model, x_run[None]))[0]
-        ours = np.asarray(
-            dense_forward_hybrid(
-                dense_model, x_run, interpret=True,
-                dot_precision="default", weights_bf16=True,
-            )
-        )
-        rel = np.linalg.norm(ours - ref) / np.linalg.norm(ref)
-        assert rel < 0.02, rel
 
     @pytest.mark.parametrize("merged", [True, False])
     def test_fused_reduced_matches_scan(self, dense_model, x_run, merged):
+        """Reduced models reach the kernel through their exact dense
+        reconstruction; the reference is the two-step scan."""
         rmodel = make_reduced_model(
             make_singular_model(dense_model, merged_kernel=merged), rank=10
         )
         ref = np.asarray(reduced_lstm_apply(rmodel, x_run[None]))[0]
-        ours = np.asarray(fused_reduced_stack_pallas(rmodel, x_run, interpret=True))
+        ours = np.asarray(stack_forward(reconstruct_dense_model(rmodel), x_run))
         np.testing.assert_allclose(ours, ref, atol=2e-5)
-
-    def test_hybrid_reduced_matches_scan(self, dense_model, x_run):
-        rmodel = make_reduced_model(
-            make_singular_model(dense_model, merged_kernel=False), rank=10
-        )
-        ref = np.asarray(reduced_lstm_apply(rmodel, x_run[None]))[0]
-        ours = np.asarray(reduced_forward_hybrid(rmodel, x_run, interpret=True))
-        np.testing.assert_allclose(ours, ref, atol=2e-5)
-
-
-class TestCompactGateLayout:
-    """C-layout (gates packed 2 or 4 per 128-lane block, roll-based
-    extraction) must match the P-layout kernel exactly for every packing
-    regime: quad (4n<=128), pair (2n<=128), P fallback (n>64), and mixed
-    stacks."""
-
-    @pytest.mark.parametrize(
-        "units",
-        [(40, 40, 40, 40), (30, 30), (15, 15, 15), (64, 64), (72, 72), (40, 30, 15)],
-    )
-    def test_compact_matches_p_layout(self, units):
-        params = init_stacked_lstm(jax.random.PRNGKey(7), input_dim=16, units=units)
-        x = jnp.asarray(np.random.default_rng(8).normal(size=(60, 16)), jnp.float32)
-        ref = np.asarray(fused_dense_stack_pallas(params, x, interpret=True, layout="p"))
-        got = np.asarray(
-            fused_dense_stack_pallas(params, x, interpret=True, layout="compact")
-        )
-        np.testing.assert_allclose(got, ref, atol=1e-6)
-
-    def test_compact_matches_scan(self, dense_model, x_run):
-        ref = np.asarray(stacked_lstm_apply(dense_model, x_run[None]))[0]
-        ours = np.asarray(
-            fused_dense_stack_pallas(dense_model, x_run, interpret=True, layout="compact")
-        )
-        np.testing.assert_allclose(ours, ref, atol=2e-5)
-
-
-class TestTimeLoopUnroll:
-    @pytest.mark.parametrize("T", [9, 17, 33, 48])
-    def test_unroll_divisor_fallback(self, rng, T):
-        """_time_loop clamps the unroll factor to a divisor of the chunk
-        length; awkward T values must still match the XLA scan exactly."""
-        n = 8
-        xp = jnp.asarray(rng.normal(size=(T, 4 * n)), jnp.float32)
-        U = jnp.asarray(rng.normal(scale=0.3, size=(n, 4 * n)), jnp.float32)
-        h0 = jnp.zeros((1, n))
-        c0 = jnp.zeros((1, n))
-        for unroll in (1, 3, 16):
-            ours = lstm_recurrence_pallas(xp, U, h0, c0, interpret=True, unroll=unroll)
-            ref = lstm_recurrence_xla(xp[None], U, h0, c0)[0]
-            np.testing.assert_allclose(np.asarray(ours), np.asarray(ref), atol=1e-5)

@@ -1,8 +1,8 @@
-"""Batched-throughput Pallas recurrence (ops/pallas_batched.py).
-
-Interpret-mode numerics on CPU: the kernel must reproduce the XLA scan
-recurrence exactly in f32 (identical arithmetic), and the whole fast
-forward must stay within bf16-roundoff of the exact model.
+"""The recurrence kernel on batched input (ops/gpu_recurrence.py): the grid
+runs over 16-row batch tiles, so multi-tile and padded batches must
+reproduce the XLA scan exactly in f32 interpret mode, each tile must start
+from a zero state, and the batched fast mode (bf16 XLA scan) must stay
+within bf16 roundoff of the exact model.
 """
 
 import numpy as np
@@ -10,15 +10,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
+from svd_lstm_tpu.api import predict
 from svd_lstm_tpu.models.lstm import (
     gate_update,
     init_stacked_lstm,
     stacked_lstm_apply,
 )
-from svd_lstm_tpu.ops.pallas_batched import (
-    batched_forward_fast,
-    batched_lstm_recurrence_pallas,
-)
+from svd_lstm_tpu.ops.gpu_recurrence import lstm_recurrence_fwd, stack_forward
 
 
 def _scan_recurrence(xp, U):
@@ -37,72 +35,65 @@ def _scan_recurrence(xp, U):
 
 
 @pytest.mark.parametrize(
-    "T,B,n,bt",
+    "T,B,n",
     [
-        (7, 12, 40, 8),    # lane padding (npg=128) + batch padding (Bp=16)
-        (4, 8, 128, 8),    # lane-aligned fast path, single batch tile
-        (5, 24, 64, 8),    # multiple batch tiles
+        (7, 12, 40),    # gate padding (G=64) + batch padding (Bp=16)
+        (4, 16, 128),   # gate width already a power of two, one batch tile
+        (5, 40, 64),    # three batch tiles, the last one padded
     ],
 )
-def test_recurrence_matches_scan_f32(rng, T, B, n, bt):
+def test_recurrence_matches_scan_f32(rng, T, B, n):
     U = jnp.asarray(rng.normal(size=(n, 4 * n)).astype(np.float32)) * 0.1
     xp = jnp.asarray(rng.normal(size=(T, B, 4 * n)).astype(np.float32))
     y_ref = np.asarray(_scan_recurrence(xp, U))
-    y = np.asarray(batched_lstm_recurrence_pallas(xp, U, bt=bt, interpret=True))
-    # identical f32 arithmetic in interpret mode
-    np.testing.assert_array_equal(y, y_ref)
+    y = np.asarray(lstm_recurrence_fwd(xp, U)[0])
+    # the same f32 arithmetic in interpret mode, up to summation order
+    np.testing.assert_allclose(y, y_ref, atol=1e-6)
 
 
 def test_recurrence_state_resets_across_batch_tiles(rng):
-    """Each batch tile's (h, c) must start from zero — a stale-scratch bug
-    would leak tile i's final state into tile i+1's first step."""
-    T, B, n, bt = 3, 16, 32, 8
+    """Each batch tile's (h, c) must start from zero — a stale carry would
+    leak tile i's final state into tile i+1's first step."""
+    T, n = 3, 32
     U = jnp.asarray(rng.normal(size=(n, 4 * n)).astype(np.float32)) * 0.1
-    xp_half = jnp.asarray(rng.normal(size=(T, 8, 4 * n)).astype(np.float32))
+    xp_half = jnp.asarray(rng.normal(size=(T, 16, 4 * n)).astype(np.float32))
     xp = jnp.concatenate([xp_half, xp_half], axis=1)  # two identical tiles
-    y = np.asarray(batched_lstm_recurrence_pallas(xp, U, bt=bt, interpret=True))
-    np.testing.assert_array_equal(y[:, :8], y[:, 8:])
+    y = np.asarray(lstm_recurrence_fwd(xp, U)[0])
+    np.testing.assert_array_equal(y[:, :16], y[:, 16:])
 
 
 def test_forward_fast_close_to_exact(rng):
     params = init_stacked_lstm(jax.random.PRNGKey(1), input_dim=6, units=(40, 128))
     x = jnp.asarray(rng.normal(size=(4, 9, 6)).astype(np.float32))
     y_exact = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-    y_fast = np.asarray(batched_forward_fast(params, x, bt=8, interpret=True))
+    y_fast = np.asarray(predict(params, x, precision="fast"))
     assert y_fast.shape == y_exact.shape
     rel = np.linalg.norm(y_fast - y_exact) / np.linalg.norm(y_exact)
-    assert rel < 2e-2  # bf16 x-side roundoff only
+    assert rel < 2e-2  # bf16 operand roundoff only
 
 
 def test_forward_fast_narrow_layers_use_scan_fallback(rng):
-    # all-narrow model: no layer hits the Pallas path; result must still be
-    # bf16-close to exact (guards the fallback branch's correctness)
+    # the batched fast mode is the bf16 XLA scan for every width: the
+    # result must be bf16-close to exact
     params = init_stacked_lstm(jax.random.PRNGKey(2), input_dim=4, units=(24, 40))
     x = jnp.asarray(rng.normal(size=(3, 11, 4)).astype(np.float32))
     y_exact = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-    y_fast = np.asarray(batched_forward_fast(params, x, bt=8, interpret=True))
+    y_fast = np.asarray(predict(params, x, precision="fast"))
     rel = np.linalg.norm(y_fast - y_exact) / np.linalg.norm(y_exact)
     assert rel < 3e-2
 
 
 def test_batch1_fast_dot_precision_exact_on_cpu(rng):
-    """dot_precision='default' (the batch-1 fast mode) changes nothing in
-    interpret mode — CPU DEFAULT-precision f32 dots are exact, so the
-    relaxation is purely a TPU MXU-pass reduction."""
-    from svd_lstm_tpu.ops.pallas_lstm import fused_dense_stack_pallas
-
+    """precision='default' (TF32 on the GPU, the fast mode) changes nothing
+    in interpret mode — CPU f32 dots are exact whatever the flag."""
     params = init_stacked_lstm(jax.random.PRNGKey(5), input_dim=4, units=(16, 16))
     x1 = jnp.asarray(rng.normal(size=(12, 4)).astype(np.float32))
-    y_exact = np.asarray(fused_dense_stack_pallas(params, x1, interpret=True))
-    y_fast = np.asarray(
-        fused_dense_stack_pallas(params, x1, interpret=True, dot_precision="default")
-    )
+    y_exact = np.asarray(stack_forward(params, x1, precision="highest"))
+    y_fast = np.asarray(stack_forward(params, x1, precision="default"))
     np.testing.assert_array_equal(y_fast, y_exact)
 
 
 def test_predict_fast_batch1_cpu_runs_exact(rng):
-    from svd_lstm_tpu.api import predict
-
     params = init_stacked_lstm(jax.random.PRNGKey(6), input_dim=4, units=(16, 16))
     x1 = jnp.asarray(rng.normal(size=(12, 4)).astype(np.float32))
     y_exact = np.asarray(predict(params, x1, precision="exact"))
@@ -111,11 +102,8 @@ def test_predict_fast_batch1_cpu_runs_exact(rng):
 
 
 def test_predict_fast_dispatches_batched(rng):
-    """predict(..., precision='fast') on CPU keeps the XLA fallback and
-    matches the exact path to bf16 tolerance (the TPU dispatch to
-    batched_forward_fast is exercised by scripts/smoke_tpu.py)."""
-    from svd_lstm_tpu.api import predict
-
+    """predict(..., precision='fast') on batched input runs the bf16 XLA
+    scan and matches the exact path to bf16 tolerance."""
     params = init_stacked_lstm(jax.random.PRNGKey(3), input_dim=4, units=(16, 16))
     x = jnp.asarray(rng.normal(size=(2, 7, 4)).astype(np.float32))
     y_exact = np.asarray(predict(params, x, precision="exact"))

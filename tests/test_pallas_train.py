@@ -1,19 +1,34 @@
-"""Trainable Pallas recurrence (ops/pallas_train.py): interpret-mode
-forward parity and gradient parity with autodiff of the scan recurrence."""
-
-import functools
+"""Trainable recurrence kernel pair (ops/gpu_recurrence.py): interpret-mode
+forward parity and gradient parity with autodiff of the scan recurrence.
+On the CPU every dot is exact f32 whatever its precision flag, so the
+kernel and the scan run the same arithmetic up to summation order; the
+tolerances below (1e-5 on O(1) values, 2e-4 on summed gradients) bound
+that reordering."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from svd_lstm_tpu.models.lstm import init_stacked_lstm, stacked_lstm_apply
-from svd_lstm_tpu.ops.pallas_train import (
-    _fwd_scan_hc,
-    lstm_recurrence_trainable,
+from svd_lstm_tpu.models.lstm import gate_update, init_stacked_lstm, stacked_lstm_apply
+from svd_lstm_tpu.ops.gpu_recurrence import (
+    lstm_recurrence,
+    lstm_recurrence_fwd,
     stacked_lstm_apply_fast_train,
 )
+
+
+def _fwd_scan_hc(xp, U):
+    """The lax.scan recurrence returning (h_seq, c_seq): the reference."""
+    T, B, _ = xp.shape
+    n = U.shape[0]
+
+    def step(carry, xp_t):
+        h, c = gate_update(xp_t + carry[0] @ U, carry[1])
+        return (h, c), (h, c)
+
+    zero = jnp.zeros((B, n), jnp.float32)
+    return jax.lax.scan(step, (zero, zero), xp)[1]
 
 
 @pytest.mark.parametrize("T,B,n", [(5, 8, 128), (4, 12, 128)])  # 12: batch padding
@@ -26,7 +41,7 @@ def test_recurrence_gradients_match_autodiff(rng, T, B, n):
         return jnp.sum(_fwd_scan_hc(xp, U)[0] * cot)
 
     def loss_kernel(xp, U):
-        return jnp.sum(lstm_recurrence_trainable(xp, U, 8, True) * cot)
+        return jnp.sum(lstm_recurrence(xp, U, "default") * cot)
 
     g_ref = jax.grad(loss_ref, argnums=(0, 1))(xp, U)
     g_k = jax.grad(loss_kernel, argnums=(0, 1))(xp, U)
@@ -38,11 +53,11 @@ def test_apply_fast_train_matches_exact_forward(rng):
     params = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=6, units=(128, 24))
     x = jnp.asarray(rng.normal(size=(8, 9, 6)).astype(np.float32))
     y_ref = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-    y = np.asarray(stacked_lstm_apply_fast_train(params, x, interpret=True))
+    y = np.asarray(stacked_lstm_apply_fast_train(params, x))
     # CPU DEFAULT-precision dots are exact f32 — identical arithmetic
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
     y_last = np.asarray(
-        stacked_lstm_apply_fast_train(params, x, return_sequences=False, interpret=True)
+        stacked_lstm_apply_fast_train(params, x, return_sequences=False)
     )
     np.testing.assert_allclose(y_last, y_ref[:, -1], atol=1e-5)
 
@@ -58,8 +73,7 @@ def test_fit_with_fast_train_apply(rng):
     params = init_stacked_lstm(jax.random.PRNGKey(1), input_dim=6, units=(128,))
     cfg = TrainConfig(num_windows=16, window_len=10, batch_size=8, epochs=2)
 
-    apply_fast = functools.partial(stacked_lstm_apply_fast_train, interpret=True)
-    r_fast = fit(params, X, y, cfg=cfg, apply_fn=apply_fast)
+    r_fast = fit(params, X, y, cfg=cfg, apply_fn=stacked_lstm_apply_fast_train)
     r_scan = fit(params, X, y, cfg=cfg)
     assert np.isfinite(r_fast.history).all()
     # identical arithmetic on CPU up to dot-order roundoff
@@ -83,18 +97,16 @@ def test_fit_recurrence_kernel_config_flag(rng):
 
 
 def test_apply_fast_train_uniform_stack_scan_path(rng):
-    """Uniform lane-aligned WIDE stacks (n > 128) take the scan-over-layers
-    path whose body is the fully-fused layer kernel
-    (ops/pallas_train_wide.py; layer-1 zero-padding is exact). Narrow
-    stacks route to the fused whole-stack kernel instead (test below)."""
+    """Stacks with a layer wider than the kernel takes (n > 128) train on
+    the lax.scan: values and gradients are the scan's own."""
     params = init_stacked_lstm(jax.random.PRNGKey(3), input_dim=6, units=(256, 256))
     x = jnp.asarray(rng.normal(size=(8, 5, 6)).astype(np.float32))
     y_ref = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-    y = np.asarray(stacked_lstm_apply_fast_train(params, x, interpret=True))
+    y = np.asarray(stacked_lstm_apply_fast_train(params, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
-    # gradients flow through the scanned kernel pair
+
     def loss(p):
-        return jnp.sum(stacked_lstm_apply_fast_train(p, x, interpret=True) ** 2)
+        return jnp.sum(stacked_lstm_apply_fast_train(p, x) ** 2)
 
     def loss_ref(p):
         return jnp.sum(stacked_lstm_apply(p, x, return_sequences=True) ** 2)
@@ -106,26 +118,21 @@ def test_apply_fast_train_uniform_stack_scan_path(rng):
 
 
 def test_apply_fast_train_narrow_fused_path(rng):
-    """Narrow stacks (all n <= 128) route to the fused whole-stack kernel
-    pair — forward exact, gradients parity with autodiff."""
+    """Narrow stacks (all n <= 128) run every layer's recurrence through
+    the kernel pair — forward exact, gradients parity with autodiff."""
     params = init_stacked_lstm(
         jax.random.PRNGKey(4), input_dim=6, units=(40, 30, 40)
     )
     x = jnp.asarray(rng.normal(size=(8, 6, 6)).astype(np.float32))
     y_ref = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-    y = np.asarray(stacked_lstm_apply_fast_train(params, x, interpret=True))
+    y = np.asarray(stacked_lstm_apply_fast_train(params, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
     def loss(p):
-        return jnp.sum(
-            stacked_lstm_apply_fast_train(p, x, return_sequences=False, interpret=True)
-            ** 2
-        )
+        return jnp.sum(stacked_lstm_apply_fast_train(p, x, return_sequences=False) ** 2)
 
     def loss_ref(p):
-        return jnp.sum(
-            stacked_lstm_apply(p, x, return_sequences=False) ** 2
-        )
+        return jnp.sum(stacked_lstm_apply(p, x, return_sequences=False) ** 2)
 
     g = jax.grad(loss)(params)
     g_ref = jax.grad(loss_ref)(params)
@@ -134,50 +141,36 @@ def test_apply_fast_train_narrow_fused_path(rng):
 
 
 def test_fused_fwd_kernel_matches_scan_directly(rng):
-    """_fused_fwd itself (not the custom_vjp primal, which runs XLA scans
-    outside differentiation) must reproduce the scan's states exactly."""
-    from svd_lstm_tpu.models.lstm import init_stacked_lstm
-    from svd_lstm_tpu.ops.pallas_train_fused import _fused_fwd
-
-    params = init_stacked_lstm(jax.random.PRNGKey(5), input_dim=6, units=(40, 24))
-    x1 = jnp.asarray(
-        np.random.default_rng(3).normal(size=(5, 8, 6)).astype(np.float32)
-    )  # (T, B, d)
-    h_all, c_all = _fused_fwd(tuple(params.layers), x1, interpret=True)
-
-    h = jnp.swapaxes(x1, 0, 1)
-    for i, layer in enumerate(params.layers):
-        from svd_lstm_tpu.models.lstm import lstm_layer_apply
-
-        h = lstm_layer_apply(layer, h)
-        u = layer.units
-        np.testing.assert_allclose(
-            np.asarray(h_all[:, :, i * 128 : i * 128 + u]),
-            np.asarray(jnp.swapaxes(h, 0, 1)),
-            atol=1e-5,
-        )
+    """The forward kernel's own (h_seq, c_seq) — the residuals the backward
+    kernel reads — must reproduce the scan's states."""
+    xp = jnp.asarray(rng.normal(size=(5, 8, 4 * 40)).astype(np.float32))
+    U = jnp.asarray(rng.normal(size=(40, 4 * 40)).astype(np.float32)) * 0.1
+    h, c = lstm_recurrence_fwd(xp, U)
+    h_ref, c_ref = _fwd_scan_hc(xp, U)
+    np.testing.assert_allclose(np.asarray(h), np.asarray(h_ref), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(c), np.asarray(c_ref), atol=1e-5)
 
 
 def test_apply_fast_train_uniform_stack_wide_input_fallback(rng):
-    """Uniform lane-aligned stack with input_dim > n0 can't stack layer-1's
-    W with the others — it must fall back to the XLA scan (ADVICE r2) and
-    still match the exact forward."""
+    """An input wider than the layers (d=200 > n=128) is no obstacle: the
+    input projection is hoisted out of the kernel, so the stack runs the
+    kernel pair and matches the exact forward."""
     params = init_stacked_lstm(jax.random.PRNGKey(4), input_dim=200, units=(128, 128))
     x = jnp.asarray(rng.normal(size=(8, 4, 200)).astype(np.float32))
     y_ref = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-    y = np.asarray(stacked_lstm_apply_fast_train(params, x, interpret=True))
+    y = np.asarray(stacked_lstm_apply_fast_train(params, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
 
 def test_apply_fast_train_balanced_chunk_boundaries(rng):
-    """The B > 496 balanced-chunk dispatch (ops/pallas_train.py): B=600
-    splits into 3×200 with zero pad rows; B=997 (odd, not a multiple of 8)
-    pads to 4×256 and slices back — both must match the exact forward
+    """Large and odd batches need no chunking: the grid runs over 16-row
+    batch tiles, zero-padding the last (B=600 -> 38 tiles with 8 pad rows;
+    B=997 -> 63 tiles) and slicing back — both match the exact forward
     row-for-row."""
     params = init_stacked_lstm(jax.random.PRNGKey(5), input_dim=6, units=(10,))
     for B in (600, 997):
         x = jnp.asarray(rng.normal(size=(B, 3, 6)).astype(np.float32))
         y_ref = np.asarray(stacked_lstm_apply(params, x, return_sequences=True))
-        y = np.asarray(stacked_lstm_apply_fast_train(params, x, interpret=True))
+        y = np.asarray(stacked_lstm_apply_fast_train(params, x))
         assert y.shape == y_ref.shape
         np.testing.assert_allclose(y, y_ref, atol=1e-5)

@@ -43,6 +43,24 @@ def test_fit_dp_matches_single_device(data):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=2e-4)
 
 
+@pytest.mark.parametrize("kernel", [False, True])
+def test_fit_dp_sgd_matches_single_device(data, kernel):
+    """Under plain SGD the dp loop's gradient is exactly the single-device
+    one, on the scan (vma-checked) and the kernel path alike — the mean
+    over shards is taken once."""
+    import optax
+
+    X, y = data
+    params = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=6, units=(10,))
+    mesh = make_mesh(dp=8, tp=1)
+    cfg = TrainConfig(**{**CFG, "epochs": 2}, recurrence_kernel=kernel)
+    r_one = fit(params, X, y, cfg=cfg, optimizer=optax.sgd(0.5))
+    r_dp = fit_dp(params, X, y, mesh, cfg=cfg, optimizer=optax.sgd(0.5))
+    np.testing.assert_allclose(r_dp.history, r_one.history, rtol=1e-5)
+    for a, b in zip(jax.tree.leaves(r_dp.params), jax.tree.leaves(r_one.params)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-5)
+
+
 def test_fit_dp_rejects_indivisible_batch(data):
     X, y = data
     params = init_stacked_lstm(jax.random.PRNGKey(0), input_dim=6, units=(8,))
@@ -90,7 +108,7 @@ def test_fit_dp_nan_rollback(data):
 
 
 def test_fit_dp_honors_recurrence_kernel(data):
-    """cfg.recurrence_kernel swaps the dp loop onto the Pallas training
+    """cfg.recurrence_kernel swaps the dp loop onto the recurrence kernel
     engine (interpret mode on CPU) and still matches the single-device
     kernel run."""
     X, y = data
@@ -178,7 +196,7 @@ def test_finetune_reduced_dp_matches_single_device(data):
     """The dp recovery fine-tune (beyond-reference: the reference's
     reduced cell is frozen, code/svd_classes_v3.py:249-315) reproduces
     the single-device finetune_reduced loop, including through the
-    Pallas training engine (recurrence_kernel=True, interpret on CPU)."""
+    recurrence kernel pair (recurrence_kernel=True, interpret on CPU)."""
     from svd_lstm_tpu.factor.svd import make_reduced_model
     from svd_lstm_tpu.parallel.fit import finetune_reduced_dp
     from svd_lstm_tpu.train.finetune import finetune_reduced
@@ -202,7 +220,7 @@ def test_finetune_reduced_dp_matches_single_device(data):
 def test_finetune_reduced_dp_conv_hybrid(data):
     """Family dispatch: the conv-hybrid reduced model trains through the
     dp recovery loop — both the XLA scan and, since round 4, the fused
-    Pallas engine (ops/conv_train.py, interpret on CPU)."""
+    recurrence kernel pair (ops/conv_train.py, interpret on CPU)."""
     from svd_lstm_tpu.factor.svd import (
         make_conv_reduced_model,
         make_conv_singular_model,

@@ -100,9 +100,9 @@ def test_quantize_params_idempotent():
 
 def test_dequantized_params_merged_reduced(rng):
     """dequantized_params on a merged reduced model keeps the single-array
-    structure and quantizes per OUTPUT column of each factor (the ADVICE-r2
-    per-row bug is structurally impossible now that the side helper treats
-    merged as a one-group side — round 3)."""
+    structure and quantizes per OUTPUT column of each factor (a per-row
+    quantization is structurally impossible now that the side helper treats
+    merged as a one-group side)."""
     from svd_lstm_tpu.io.int8_export import dequantized_params
 
     params = init_stacked_lstm(jax.random.PRNGKey(7), input_dim=8, units=(12,))
@@ -173,8 +173,8 @@ def test_int8_compensation_never_increases_encoded_error():
     # On a TRAINED model the mechanism engages for real: fine-tuned factors
     # develop ill-conditioned V1 blocks whose C = V1^-1 V2 carries large
     # rows (measured max|C| up to ~250 on this checkpoint), and the
-    # re-solve strictly shrinks the encoded error (BENCH_NOTES §int8
-    # artifact compensation). Random-init models stay near-orthogonal and
+    # re-solve strictly shrinks the encoded error
+    # (scripts/int8_compensation_study.py). Random-init models stay near-orthogonal and
     # barely engage it, so the strict-win assert needs the shipped
     # checkpoint.
     from svd_lstm_tpu.io.checkpoint import load_params

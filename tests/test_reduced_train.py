@@ -91,7 +91,7 @@ def test_forward_parity_interpret(rng, merged):
     r = _model(merged)
     x = jnp.asarray(rng.normal(size=(8, 6, 8)).astype(np.float32))
     y_ref = np.asarray(reduced_lstm_apply(r, x, return_sequences=True))
-    y = np.asarray(reduced_lstm_apply_fast_train(r, x, interpret=True))
+    y = np.asarray(reduced_lstm_apply_fast_train(r, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
 
@@ -113,7 +113,7 @@ def test_gradient_parity_all_factors(rng, merged):
     g_ref = jax.grad(loss(reduced_lstm_apply))(r)
     g_ker = jax.grad(
         loss(lambda p, xx, return_sequences: reduced_lstm_apply_fast_train(
-            p, xx, return_sequences=return_sequences, interpret=True
+            p, xx, return_sequences=return_sequences
         ))
     )(r)
     for a, b, path in zip(
@@ -238,12 +238,11 @@ def test_recover_conv_hybrid_runs(rng):
 
 
 def test_large_batch_chunks_through_kernel(rng):
-    """B past the measured B>=512 compiler cliff runs the kernel over
-    independent 256-row chunks (ops/singular_train.chunked_fast_train);
-    the chunked forward matches the factored scan exactly, padded rows
-    sliced away."""
+    """A large batch (B=504: 32 batch tiles, the last one padded) runs
+    the kernel's batch-tile grid; the forward matches the factored scan
+    exactly, padded rows sliced away."""
     r = _model(False, units=(12,), d=8)
     x = jnp.asarray(rng.normal(size=(504, 5, 8)).astype(np.float32))
     y_ref = np.asarray(reduced_lstm_apply(r, x, return_sequences=True))
-    y = np.asarray(reduced_lstm_apply_fast_train(r, x, interpret=True))
+    y = np.asarray(reduced_lstm_apply_fast_train(r, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)

@@ -24,38 +24,54 @@ class TestRoofline:
         assert "roofline" in s and "ns/step" in s
 
     def test_train_cost_wide_vs_narrow(self):
-        from svd_lstm_tpu.bench.roofline import (
-            narrow_train_step_cost,
-            wide_train_step_cost,
-        )
+        from svd_lstm_tpu.bench.roofline import train_step_cost
 
-        w = wide_train_step_cost(16, (512,) * 3, B=128, T=200)
-        # per layer-step: 8 dots of B*n*4n MACs, 9 (B, n) f32 blocks
-        assert w.macs_executed == 8 * 3 * 128 * 200 * 512 * 4 * 512
-        assert w.hbm_bytes == 9 * 3 * 128 * 200 * 512 * 4
-        # wide training is compute-bound in this layout
-        assert w.compute_floor_ms() > w.bandwidth_floor_ms()
+        w = train_step_cost(16, (512,) * 3, B=128, T=200)
         # model MACs = 3x forward
         d, fwd = 16, 0
         for n in (512,) * 3:
             fwd += 128 * 200 * (d * 4 * n + n * 4 * n)
             d = n
         assert w.macs_model == 3 * fwd
+        # at n=512 the gate width is n: no padding, the kernel's 12 dots
+        # per layer-step plus the unpadded XLA products exceed 3x forward
+        # only by the backward's gate recompute
+        assert w.macs_executed > w.macs_model
 
-        nar = narrow_train_step_cost(16, (40,) * 4, B=512, T=200)
-        # P-layout padding: executed MACs dwarf model MACs at n=40
-        assert nar.macs_executed > 5 * nar.macs_model
-        # floor_fraction / mfu are monotone in measured time
-        assert nar.floor_fraction(4.0) > nar.floor_fraction(2.5) > 0
-        assert 0 < nar.mfu(4.0) < nar.mfu(2.5) < 1
+        nar = train_step_cost(16, (40,) * 4, B=512, T=200)
+        # n=40 pads each gate to 64 columns: executed MACs exceed model MACs
+        assert nar.macs_executed > 2 * nar.macs_model
+        # 18 G-wide f32 rows per layer-step (6 forward, 12 backward)
+        assert nar.hbm_bytes == 4 * 18 * 512 * 200 * 64 * 4
+        # mfu is monotone in measured time
+        pk = 989e12
+        assert 0 < nar.mfu(4.0, pk) < nar.mfu(2.5, pk) < 1
 
     def test_train_cost_narrow_rounds_batch_to_8(self):
-        from svd_lstm_tpu.bench.roofline import narrow_train_step_cost
+        """The kernel pads the batch to whole 16-row tiles (Triton's least
+        dot height), so B=9 executes what B=16 does; model MACs count the
+        true B."""
+        from svd_lstm_tpu.bench.roofline import train_step_cost
 
-        a = narrow_train_step_cost(16, (40,) * 4, B=9, T=10)
-        b = narrow_train_step_cost(16, (40,) * 4, B=16, T=10)
-        assert a.macs_executed == b.macs_executed  # 9 -> 16 padded rows
-        assert a.macs_model < b.macs_model  # model MACs count true B
+        a = train_step_cost(16, (40,) * 4, B=9, T=10)
+        b = train_step_cost(16, (40,) * 4, B=16, T=10)
+        assert a.hbm_bytes == b.hbm_bytes
+        assert a.macs_model < b.macs_model
+
+    def test_peaks_keyed_by_device_kind(self):
+        import pytest
+
+        from svd_lstm_tpu.bench.roofline import peaks, roofline_ms
+
+        pk = peaks("NVIDIA H100 80GB HBM3")
+        assert pk.bf16_flops == 989e12 and pk.hbm_bytes_per_s == 3.35e12
+        with pytest.raises(KeyError):
+            peaks("Unlisted Accelerator 9000")
+        # 1 GFLOP of work and 1 byte: compute-bound at every precision
+        ms, bound = roofline_ms(0.5e9, 1, pk, "bfloat16")
+        assert bound == "compute" and abs(ms - 1e9 / 989e12 * 1e3) < 1e-12
+        ms, bound = roofline_ms(1, 3.35e9, pk)
+        assert bound == "memory" and abs(ms - 1.0) < 1e-9
 
 
 class TestMultiRunBatcher:
@@ -71,19 +87,3 @@ class TestMultiRunBatcher:
         assert (Xm.min(axis=(1, 2)) == Xm.max(axis=(1, 2))).all()
         # labels are window-end values
         assert ((ym >= 20) & (ym < T)).all()
-
-
-def test_narrow_train_cost_compact_layout():
-    """layout="compact" (the dispatch's auto resolution at B >= 128)
-    halves the executed MACs at n=40 (k=2 gates per block) and leaves the
-    HBM bytes unchanged (the streamed blocks are h/c-state-sized)."""
-    from svd_lstm_tpu.bench.roofline import narrow_train_step_cost
-
-    p = narrow_train_step_cost(16, (40, 40, 40, 40), 512, 200, layout="p")
-    c = narrow_train_step_cost(16, (40, 40, 40, 40), 512, 200, layout="compact")
-    assert c.macs_executed * 2 == p.macs_executed
-    assert c.hbm_bytes == p.hbm_bytes
-    assert c.macs_model == p.macs_model
-    # at this point the compact floor flips to HBM-bound
-    assert c.bandwidth_floor_ms() > c.compute_floor_ms()
-    assert p.compute_floor_ms() > p.bandwidth_floor_ms()

@@ -2,7 +2,7 @@
 
 The reference's fine-tune stage (code/svd_acceleration_v3.py:119-128)
 trains the factorized model; ops/singular_train.py routes that training
-through the fused dense Pallas kernels via a differentiable dense
+through the recurrence kernel pair via a differentiable dense
 reconstruction. These tests pin (a) forward parity, (b) EXACT chain-rule
 gradient parity for every factor (σ, U, V, b, head) against autodiff of
 the factored scan forward, and (c) that `fit(recurrence_kernel=True)`
@@ -52,7 +52,7 @@ def test_forward_parity_interpret(rng, merged):
     s = _model(merged)
     x = jnp.asarray(rng.normal(size=(8, 6, 8)).astype(np.float32))
     y_ref = np.asarray(singular_lstm_apply(s, x, return_sequences=True))
-    y = np.asarray(singular_lstm_apply_fast_train(s, x, interpret=True))
+    y = np.asarray(singular_lstm_apply_fast_train(s, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
 
@@ -75,7 +75,7 @@ def test_gradient_parity_all_factors(rng, merged):
     g_ref = jax.grad(loss(singular_lstm_apply))(s)
     g_ker = jax.grad(
         loss(lambda p, xx, return_sequences: singular_lstm_apply_fast_train(
-            p, xx, return_sequences=return_sequences, interpret=True
+            p, xx, return_sequences=return_sequences
         ))
     )(s)
     for a, b, path in zip(
@@ -91,7 +91,7 @@ def test_gradient_parity_all_factors(rng, merged):
 
 def test_finetune_honors_recurrence_kernel(rng, monkeypatch):
     """fit() swaps singular_lstm_apply for the kernel path when
-    TrainConfig.recurrence_kernel=True (VERDICT r2 missing #1)."""
+    TrainConfig.recurrence_kernel=True."""
     import svd_lstm_tpu.ops.singular_train as st_mod
     from svd_lstm_tpu.train.finetune import finetune
 
@@ -141,20 +141,19 @@ def test_finetune_kernel_matches_scan_losses(rng):
 
 
 def test_large_batch_chunks_through_kernel(rng):
-    """B past the measured B>=512 compiler cliff runs the kernel over
-    independent 256-row chunks with zero-padding on the last chunk
-    (chunked_fast_train, ops/singular_train.py docstring) and still
-    matches the factored forward exactly."""
+    """A large batch (B=504: 32 batch tiles, the last one padded) runs
+    the kernel's batch-tile grid and still matches the factored forward
+    exactly."""
     s = _model(False, units=(12,), d=8)
     x = jnp.asarray(rng.normal(size=(504, 5, 8)).astype(np.float32))
     y_ref = np.asarray(singular_lstm_apply(s, x, return_sequences=True))
-    y = np.asarray(singular_lstm_apply_fast_train(s, x, interpret=True))
+    y = np.asarray(singular_lstm_apply_fast_train(s, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-5)
 
 
 def test_chunked_gradients_exact(rng):
-    """Gradients through the chunked path (B>496, padded last chunk) match
-    autodiff of the factored scan — chunk concatenation and pad rows are
+    """Gradients through a large padded batch (B=504) match autodiff of
+    the factored scan — the pad rows of the last batch tile are
     gradient-inert."""
     s = _model(False, units=(12,), d=8)
     x = jnp.asarray(rng.normal(size=(504, 4, 8)).astype(np.float32))
@@ -172,7 +171,7 @@ def test_chunked_gradients_exact(rng):
     ))(s)
     g_ker = jax.grad(loss(
         lambda p, xx: singular_lstm_apply_fast_train(
-            p, xx, return_sequences=False, interpret=True
+            p, xx, return_sequences=False
         )
     ))(s)
     for a, b, path in zip(
@@ -187,21 +186,21 @@ def test_chunked_gradients_exact(rng):
 
 
 def test_wide_large_batch_falls_back_to_scan(rng):
-    """Non-narrow stacks (units > 128) keep the exact-scan fallback above
-    B=128 — the chunking evidence only covers the narrow fused path."""
+    """Stacks wider than the kernel takes (units > 128) train on the
+    exact scan."""
     s = _model(False, units=(130,), d=8)
     x = jnp.asarray(rng.normal(size=(136, 4, 8)).astype(np.float32))
     y_ref = np.asarray(singular_lstm_apply(s, x, return_sequences=True))
-    y = np.asarray(singular_lstm_apply_fast_train(s, x, interpret=True))
+    y = np.asarray(singular_lstm_apply_fast_train(s, x))
     np.testing.assert_allclose(y, y_ref, atol=1e-4)
 
 
 def test_wide_singular_routes_through_uniform_kernel_path(rng):
-    """A lane-aligned singular model reconstructs into the uniform-stack
-    kernel dispatch of stacked_lstm_apply_fast_train (the wide training
-    path) — forward parity in interpret mode."""
+    """A 128-unit singular model (the widest the kernel takes) trains
+    through the kernel pair via its dense view — forward parity in
+    interpret mode."""
     s = _model(False, units=(128, 128), d=8)
     x = jnp.asarray(rng.normal(size=(8, 3, 8)).astype(np.float32))
     y_ref = np.asarray(singular_lstm_apply(s, x, return_sequences=True))
-    y = np.asarray(singular_lstm_apply_fast_train(s, x, interpret=True))
+    y = np.asarray(singular_lstm_apply_fast_train(s, x))
     np.testing.assert_allclose(y, y_ref, atol=2e-5)

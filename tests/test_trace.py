@@ -1,13 +1,16 @@
 """bench.trace: persistent profiler capture + per-op breakdown (the
 diagnostic upgrade of the reference's perf_counter-only timing,
 code/svd_acceleration_v3.py:147-152). Runs on the CPU profiler — events
-are host-side but the capture/parse/aggregate path is identical."""
+are host-side but the capture/parse/aggregate path is identical. The
+device total needs a GPU device plane, so CPU tests inject it."""
 
 import os
 
 import jax
 import jax.numpy as jnp
+import pytest
 
+import svd_lstm_tpu.bench.trace as trace_mod
 from svd_lstm_tpu.__main__ import _trace
 from svd_lstm_tpu.bench.trace import (
     OpStat,
@@ -16,6 +19,12 @@ from svd_lstm_tpu.bench.trace import (
     op_breakdown,
     summarize,
 )
+
+
+@pytest.fixture()
+def fake_device_ms(monkeypatch):
+    """Stand-in for the GPU device-plane total (CPU traces have none)."""
+    monkeypatch.setattr(trace_mod, "device_ms_of", lambda trace_dir: 1.5)
 
 
 def _toy_fn():
@@ -52,7 +61,7 @@ def test_capture_trace_persists_and_breaks_down(tmp_path):
     assert len(op_breakdown(out, top=1)) == 1
 
 
-def test_summarize_and_format(tmp_path):
+def test_summarize_and_format(tmp_path, fake_device_ms):
     f, args = _toy_fn()
     s = summarize(f, *args, out_dir=str(tmp_path / "tr"), top=5)
     assert s["device_ms"] > 0
@@ -63,14 +72,14 @@ def test_summarize_and_format(tmp_path):
     assert format_breakdown([]) == "(no workload events in trace)"
 
 
-def test_cli_trace_random_model(tmp_path, capsys):
+def test_cli_trace_random_model(tmp_path, capsys, fake_device_ms):
     _trace([str(tmp_path / "tr"), "--steps", "8", "--top", "5"])
     out = capsys.readouterr().out
     assert "device total:" in out
     assert "trace ->" in out
 
 
-def test_cli_trace_reduced_checkpoint(tmp_path, capsys):
+def test_cli_trace_reduced_checkpoint(tmp_path, capsys, fake_device_ms):
     """trace works on a non-dense checkpoint: it must derive the input
     width from the family-generic input_dim property, not from a dense
     layer's W.shape. Regression: reduced/singular checkpoints crashed on
@@ -88,33 +97,35 @@ def test_cli_trace_reduced_checkpoint(tmp_path, capsys):
     assert "device total:" in out
 
 
-def test_big_trace_breakdown_uses_full_parse(tmp_path, monkeypatch):
-    """devtime's >64MB regex fast path keeps only jit_* wrapper events —
-    fine for the device total, fatal for a per-op breakdown. op_breakdown
-    must force the full parse so the diagnostic table never silently
-    degenerates to one wrapper row."""
+def test_big_trace_breakdown_uses_full_parse(tmp_path):
+    """op_breakdown parses every event of a recorded trace — including
+    events whose args object sits between name and dur — and drops the
+    jit_* wrappers, so the table never degenerates to one wrapper row."""
     import gzip
     import json as _json
-
-    import svd_lstm_tpu.bench.devtime as devtime
-    from svd_lstm_tpu.bench.devtime import _trace_dir_events
 
     d = tmp_path / "plugins" / "profile" / "run1"
     d.mkdir(parents=True)
     events = [
         {"ph": "X", "name": "jit_f", "dur": 1000.0},
-        # nested args object between name and dur — the regex fast path
-        # must cross it (a plain [^}]*? gap silently dropped these events)
         {"ph": "X", "name": "jit_g", "args": {"run_id": 1}, "dur": 250.0},
-        {"ph": "X", "name": "fusion.1", "dur": 600.0},
+        {"ph": "X", "name": "fusion.1", "args": {"run_id": 1}, "dur": 600.0},
         {"ph": "X", "name": "while.2", "dur": 400.0},
+        {"ph": "X", "name": "while.2", "dur": 100.0},
     ]
     with gzip.open(d / "host.trace.json.gz", "wb") as f:
         f.write(_json.dumps({"traceEvents": events}).encode())
 
-    monkeypatch.setattr(devtime, "_BIG_TRACE_BYTES", 1)  # force "big trace"
-    fast = _trace_dir_events(str(tmp_path))
-    assert {e["name"] for e in fast} == {"jit_f", "jit_g"}  # wrappers only
-    assert sum(e["dur"] for e in fast) == 1250.0
+    assert len(trace_mod.trace_events(str(tmp_path))) == 5
     stats = op_breakdown(str(tmp_path))
-    assert {s.name for s in stats} == {"fusion.1", "while.2"}  # full, no wrapper
+    assert [(s.name, s.count, s.total_ms) for s in stats] == [
+        ("fusion.1", 1, 0.6), ("while.2", 2, 0.5)
+    ]
+
+
+def test_summarize_device_total_needs_gpu_plane(tmp_path):
+    """Off the GPU the trace has no device plane: the device total raises
+    instead of guessing from host events."""
+    f, args = _toy_fn()
+    with pytest.raises(RuntimeError, match="no kernel events"):
+        summarize(f, *args, out_dir=str(tmp_path / "tr"))
